@@ -5,9 +5,11 @@ each module's counterpart is found by path. Imports ``torch`` and numpy
 only. Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a card and without that, it raises.
 
-Slice 1 covers the flat query path: index → compile → pack → score
-(the min-score chain as the hand-written kernel ``csrc/min_scores.cu``)
-→ ranked page.
+Ported so far: the flat query path (index → compile → pack → score →
+ranked page) and the device-resident route (``query/devindex.py``: the
+DeviceIndex build and plan, the F1 / F2 / FD waves), with both kernels
+of the JAX package as hand-written CUDA (``csrc/min_scores.cu``,
+``csrc/fd_scores.cu``).
 """
 
 __version__ = "0.1.0"

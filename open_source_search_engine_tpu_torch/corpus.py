@@ -1,12 +1,16 @@
-"""The synthetic benchmark corpus and query stream (the same generators
-as the repository's ``bench.py``): a deterministic zipf-vocabulary HTML
-corpus over 97 sites, and unique 1-3 term zipf queries."""
+"""Synthetic data for the port's checks, shared by the tests and
+``chip_smoke.py``: the benchmark corpus and query stream (the same
+generators as the repository's ``bench.py``: a deterministic
+zipf-vocabulary HTML corpus over 97 sites, and unique 1-3 term zipf
+queries), the route-exercise corpus, random inputs for the scoring
+kernels, and the tie-run comparison of two result lists."""
 
 from __future__ import annotations
 
 import numpy as np
 
 VOCAB = 2000
+P = 16
 
 
 def gen_docs(n_docs: int):
@@ -52,3 +56,104 @@ def make_queries(n: int, seed: int) -> list[str]:
             seen.add(q)
             out.append(q)
     return out
+
+
+#: the route-exercise corpus (the reference package's
+#: ``parallel/routecheck.py``): with the dense/cube thresholds scaled down
+#: by ROUTE_ENV, on ``route_docs(48)`` as one index, ``zeta`` takes F1,
+#: ``alpha`` F1 with an escalation, ``alpha beta`` FD, and ``boxes dogs``
+#: (the box/boxe conjugates and the bigram: three variants of quota 2,
+#: not quarter-aligned) the generic F2
+ROUTE_QUERIES = {
+    "zeta": "f1",
+    "alpha": "f1",
+    "alpha beta": "fd",
+    "boxes dogs": "f2",
+}
+
+#: env values that scale the dense/cube row thresholds to tiny corpora
+ROUTE_ENV = {"OSSE_DENSE_MIN_DF": "8", "OSSE_CUBE_MIN_DF": "4"}
+
+
+def route_docs(n: int, host_prefix: str = "mesh"):
+    """The n-doc route-exercise corpus, ``(url, html)`` pairs over 23
+    distinct registrable domains."""
+    out = []
+    for i in range(n):
+        extra = ["boxes dogs box boxe"]
+        if i % 2 == 0:
+            extra.append("gamma")
+        if i % 13 == 0:
+            extra.append("zeta")
+        body = f"alpha beta {' '.join(extra)} token{i} words here."
+        out.append((f"http://{host_prefix}{i % 23}.test/doc{i}",
+                    f"<html><head><title>Doc {i} alpha</title></head>"
+                    f"<body><p>{body}</p></body></html>"))
+    return out
+
+
+def rand_cube(rng, T: int, D: int, density: float = 0.25,
+              inlink_frac: float = 0.1) -> np.ndarray:
+    """Random payload cube ``[T, P, D]`` uint32 (validity = payload ≠ 0),
+    drawn as the reference package's kernel tests draw theirs."""
+    wordpos = rng.integers(0, 200000, (T, P, D)).astype(np.uint32)
+    hg = rng.integers(0, 11, (T, P, D)).astype(np.uint32)
+    hg = np.where(rng.random((T, P, D)) < inlink_frac, 5, hg)
+    den = rng.integers(1, 32, (T, P, D)).astype(np.uint32)
+    spam = rng.integers(0, 16, (T, P, D)).astype(np.uint32)
+    syn = rng.integers(0, 2, (T, P, D)).astype(np.uint32)
+    payload = (wordpos | (hg << 18) | (den << 22) | (spam << 27)
+               | (syn << 31))
+    pv = rng.random((T, P, D)) < density
+    return np.where(pv, payload, 0).astype(np.uint32)
+
+
+def fd_inputs(rng, T: int, D: int, tail: bool, B: int = 4, Vc: int = 8):
+    """Random inputs of the FD scoring kernel as numpy, in
+    ``fd_scores``'s argument order: quarter indices ``[B, T·4]`` int32
+    (every third on the all-zero last slot), synonym flags ``[B, T·4]``
+    int32, the resident cube ``[Vc·P·D]`` as an int32 view (synonym bit
+    clear: the flags carry it), ~10% dead docs ``[D]`` bool, weights
+    ``[B, T]`` float32, counted groups ``[B, T]`` bool, and, with
+    ``tail``, a sparse tail ``[B, T, P, D]`` as an int32 view that fills
+    only slots the live resident quarters leave empty (as the slot plan
+    keeps them apart), else None."""
+    cube = rand_cube(rng, Vc, D) & np.uint32(0x7FFFFFFF)
+    cube[Vc - 1] = 0
+    gq = rng.integers(0, 4 * Vc, (B, T * 4)).astype(np.int32)
+    gq[:, ::3] = 4 * (Vc - 1) + rng.integers(0, 4, gq[:, ::3].shape)
+    gs = (rng.random((B, T * 4)) < 0.3).astype(np.int32)
+    dead = rng.random(D) < 0.1
+    fw = (rng.random((B, T)) * 0.5 + 0.5).astype(np.float32)
+    counts = rng.random((B, T)) < 0.8
+    counts[:, 0] = True
+    tl = None
+    if tail:
+        tl = rand_cube(rng, B * T, D, density=0.03).reshape(B, T, P, D)
+        res = cube.reshape(-1, P // 4, D)[gq].reshape(B, T, P, D)
+        tl = np.where((res != 0) & ~dead, 0, tl).astype(np.uint32)
+        tl = tl.view(np.int32)
+    return (gq, gs, cube.reshape(-1).view(np.int32), dead, fw, counts, tl)
+
+
+def assert_tie_run_parity(got, want, label, rtol: float = 1e-5) -> None:
+    """Two ``search_batch`` tuples ``(docids, scores, n_matched)``: the
+    match count exact, scores within ``rtol``, and the docid sets equal
+    over every complete equal-score run of ``want`` (tie order inside a
+    run depends on the selection, and a run cut by the page may hold
+    another subset), as the reference's
+    ``parallel/routecheck.assert_tie_run_parity`` compares pages."""
+    gd, gs, gn = got
+    wd, ws, wn = want
+    assert gn == wn, (label, gn, wn)
+    assert len(gs) == len(ws), (label, len(gs), len(ws))
+    np.testing.assert_allclose(gs, ws, rtol=rtol, err_msg=str(label))
+    i, n = 0, len(ws)
+    while i < n:
+        j = i
+        while j < n and ws[j] == ws[i]:
+            j += 1
+        if j < n or wn <= n:
+            assert set(gd[i:j].tolist()) == set(wd[i:j].tolist()), \
+                (label, i, j)
+        i = j

@@ -4,19 +4,9 @@
 // ::_ms_kernel/_score_tile (K1, reached through _min_scores_fused):
 // a [T, P, D] cube of uint32 posting payloads (P = 16 position slots per
 // term group and doc; doc axis minor) -> min_score[D] float32, the
-// docIdLoop scoring core of Posdb.cpp. Per doc:
-//   * decode each payload (wordpos 18 bits, hashgroup 4, density 5,
-//     spam 4, syn 1) into a position weight
-//       posw = hg_weight[hg] * density_weight[den] * spamw * synw;
-//   * singles: per counted term, the top-MAX_TOP sum over the per-mapped-
-//     hashgroup maxima of BASE*posw^2 plus every inlink-text occurrence,
-//     times freq_weight^2;
-//   * pairs: per counted term pair (i, j) with j - i <= MAX_PAIR_SPAN, the
-//     max over the P x P position cross product of
-//     BASE*posw_i*posw_j/(dist+1), dist by the body/non-body rules,
-//     times freq_weight_i*freq_weight_j;
-//   * min over singles and pairs; 1.0 when no counted term is present.
-// Validity is payload != 0 (the build-side invariant).
+// docIdLoop scoring core of Posdb.cpp. The scoring body (decode, singles,
+// pairs, min) is score_body.cuh, shared with K2 (fd_scores.cu), so the
+// two kernels cannot drift; K1 only supplies the slot loader.
 //
 // What bounds it on the H100 depends on how full the cube is. The cube is
 // read once (T*P*D*4 bytes: 16.8 MB at T = 4, D = 65,536, ~5 us at
@@ -32,59 +22,17 @@
 // are template parameters (T in {4, 8, 16, 32, 64}, the packer's term
 // buckets; one instantiation reads any larger T at run time; P = 16).
 // Presence is tested per term where it is needed, so no per-doc bit mask
-// caps T. Registers, not the cube, are the scarce resource (T*P payloads
-// per thread, 1024 at T = 64), so the singles decode one term's 16
-// slots at a time, and each pair holds
-// only term i's 16 decoded slots in registers while it re-reads term j's
-// payloads from global memory (L1/L2 hits) and skips empty slots. The
-// weight tables arrive from the caller (the port's weights.py, one source
-// of truth) and sit in shared memory; no exp() runs on the card. Division
-// and sqrt are the IEEE ones (no fast math, no FMA contraction), and the
-// top-10 sum runs in the plain version's order, so the two agree bit for
-// bit on the same inputs.
-// cp.async/TMA staging and warp-level sharing of term rows are left for
-// later work.
+// caps T. cp.async/TMA staging and warp-level sharing of term rows are
+// left for later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "score_body.cuh"
+
 namespace {
 
-constexpr int kBlock = 256;
-constexpr int kMaxTop = 10;
-constexpr int kMaxPairSpan = 4;
-constexpr int kHgInlink = 5;       // HASHGROUP_INLINKTEXT
-constexpr int kHgValues = 16;      // every value of the 4-bit field
-constexpr int kDenValues = 32;     // every value of the 5-bit field
-constexpr float kBaseScore = 100.0f;
-constexpr float kSynonymWeight = 0.9f;
-constexpr float kFixedDistance = 400.0f;
-constexpr float kNonbodyDistCap = 50.0f;
-constexpr float kQdist = 2.0f;
-constexpr float kBig = 9.99e8f;
-
-struct Pos {
-  float posw;
-  int wordpos;
-  int hg;
-  bool body;
-};
-
-__device__ __forceinline__ Pos decode(uint32_t u, const float* s_hgw,
-                                      const float* s_denw,
-                                      unsigned in_body_mask) {
-  Pos x;
-  x.wordpos = (int)(u & 0x3FFFFu);
-  x.hg = (int)((u >> 18) & 0xFu);
-  const int den = (int)((u >> 22) & 0x1Fu);
-  const float spamf = (float)((u >> 27) & 0xFu);
-  const bool syn = (u >> 31) != 0u;
-  const float spamw = (x.hg == kHgInlink) ? sqrtf(1.0f + spamf)
-                                          : (spamf + 1.0f) * (1.0f / 16.0f);
-  x.posw = s_hgw[x.hg] * s_denw[den] * spamw * (syn ? kSynonymWeight : 1.0f);
-  x.body = ((in_body_mask >> x.hg) & 1u) != 0u;
-  return x;
-}
+using osse::kBlock;
 
 template <int kT, int P>
 __global__ void __launch_bounds__(kBlock)
@@ -94,134 +42,19 @@ min_scores_kernel(const uint32_t* __restrict__ cube,
                   const float* __restrict__ tables,
                   unsigned in_body_mask, int t_runtime, int D,
                   float* __restrict__ out) {
-  // kT > 0 fixes the term count at compile time; kT == 0 takes it from
-  // t_runtime (the packer's rarer buckets above 64 term groups)
-  const int T = kT > 0 ? kT : t_runtime;
-  __shared__ float s_hgw[kHgValues];
-  __shared__ float s_denw[kDenValues];
-  if (threadIdx.x < kHgValues) s_hgw[threadIdx.x] = tables[threadIdx.x];
-  if (threadIdx.x < kDenValues)
-    s_denw[threadIdx.x] = tables[kHgValues + threadIdx.x];
+  __shared__ osse::Tables s_tab;
+  osse::load_tables(tables, &s_tab);
   __syncthreads();
 
   const int d = blockIdx.x * kBlock + threadIdx.x;
   if (d >= D) return;
   const uint32_t* col = cube + d;
   const size_t stride = (size_t)D;  // between consecutive (t, p) rows
-
-  // ---- singles (getSingleTermScore) ----
-  float min_single = kBig;
-  bool any_scored = false;  // some counted term present in this doc
-#pragma unroll 1
-  for (int t = 0; t < T; ++t) {
-    if (!counts[t]) continue;
-    float gmax[kHgValues];  // per mapped hashgroup; slot 5 stays 0
-    float inlink[P];        // inlink text: every occurrence competes
-#pragma unroll
-    for (int g = 0; g < kHgValues; ++g) gmax[g] = 0.0f;
-    bool present = false;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const uint32_t u = col[(size_t)(t * P + p) * stride];
-      inlink[p] = 0.0f;
-      if (u == 0u) continue;
-      present = true;
-      const Pos x = decode(u, s_hgw, s_denw, in_body_mask);
-      const float ps = kBaseScore * x.posw * x.posw;
-      if (x.hg == kHgInlink) {
-        inlink[p] = ps;
-      } else {
-        const int mhg = x.body ? 0 : x.hg;
-#pragma unroll
-        for (int g = 0; g < kHgValues; ++g)
-          if (g == mhg) gmax[g] = fmaxf(gmax[g], ps);
-      }
-    }
-    if (!present) continue;
-    any_scored = true;
-    // top-MAX_TOP sum by repeated max knock-out over the candidates
-    // (all >= 0; -1 marks a candidate already taken)
-    float tops[kMaxTop];  // descending
-#pragma unroll
-    for (int k = 0; k < kMaxTop; ++k) {
-      float m = gmax[0];
-      int am = 0;
-#pragma unroll
-      for (int c = 1; c < kHgValues + P; ++c) {
-        const float v = c < kHgValues ? gmax[c] : inlink[c - kHgValues];
-        if (v > m) { m = v; am = c; }
-      }
-      tops[k] = m;
-#pragma unroll
-      for (int c = 0; c < kHgValues + P; ++c) {
-        if (c != am) continue;
-        if (c < kHgValues) gmax[c] = -1.0f; else inlink[c - kHgValues] = -1.0f;
-      }
-    }
-    // summed smallest first, the plain version's order
-    float top = tops[kMaxTop - 1];
-#pragma unroll
-    for (int k = kMaxTop - 2; k >= 0; --k) top += tops[k];
-    const float fw = freq_weight[t];
-    min_single = fminf(min_single, top * (fw * fw));
-  }
-  if (!any_scored) {  // no counted term present: filter-only constant
-    out[d] = 1.0f;
-    return;
-  }
-
-  // ---- pairs: exact max over P x P per nearby counted (i, j), both
-  // present in this doc ----
-  float min_pair = kBig;
-#pragma unroll 1
-  for (int i = 0; i < T - 1; ++i) {
-    if (!counts[i]) continue;
-    float pw_i[P];
-    int wp_i[P];
-    unsigned body_i = 0u;
-    bool present_i = false;
-#pragma unroll
-    for (int a = 0; a < P; ++a) {
-      const uint32_t u = col[(size_t)(i * P + a) * stride];
-      const Pos x = decode(u, s_hgw, s_denw, in_body_mask);
-      present_i |= u != 0u;
-      pw_i[a] = (u != 0u) ? x.posw : 0.0f;  // an empty slot scores 0
-      wp_i[a] = x.wordpos;
-      body_i |= (x.body ? 1u : 0u) << a;
-    }
-    if (!present_i) continue;
-    const int j_end = min(i + kMaxPairSpan, T - 1);
-#pragma unroll 1
-    for (int j = i + 1; j <= j_end; ++j) {
-      if (!counts[j]) continue;
-      float best = 0.0f;
-      bool present_j = false;
-#pragma unroll 1
-      for (int b = 0; b < P; ++b) {
-        const uint32_t u = col[(size_t)(j * P + b) * stride];
-        if (u == 0u) continue;
-        present_j = true;
-        const Pos y = decode(u, s_hgw, s_denw, in_body_mask);
-#pragma unroll
-        for (int a = 0; a < P; ++a) {
-          const float delta = (float)(y.wordpos - wp_i[a]);
-          const float d_plain = fmaxf(fabsf(delta), 2.0f);
-          const bool bi = ((body_i >> a) & 1u) != 0u;
-          const bool mixed = bi != y.body;
-          const bool both_nb = !bi && !y.body;
-          const float d_base =
-              (both_nb && d_plain > kNonbodyDistCap) ? kFixedDistance : d_plain;
-          const float d_adj = ((d_base >= kQdist) ? d_base - kQdist : d_base) +
-                              (delta < 0.0f ? 1.0f : 0.0f);
-          const float dist = mixed ? kFixedDistance : d_adj;
-          best = fmaxf(best, kBaseScore * pw_i[a] * y.posw / (dist + 1.0f));
-        }
-      }
-      if (present_j)
-        min_pair = fminf(min_pair, best * freq_weight[i] * freq_weight[j]);
-    }
-  }
-  out[d] = fminf(min_pair, min_single);
+  const auto slot = [&](int t, int p) -> uint32_t {
+    return col[(size_t)(t * P + p) * stride];
+  };
+  out[d] = osse::score_doc<kT, P>(slot, t_runtime, freq_weight, counts,
+                                  s_tab, in_body_mask);
 }
 
 template <int kT>

@@ -20,13 +20,19 @@ def collection_from_arrays(name: str, base_dir: str | Path,
                            clusterdb_keys: np.ndarray,
                            sectiondb_keys: np.ndarray,
                            num_docs: int,
-                           device: str | torch.device | None = None
+                           device: str | torch.device | None = None,
+                           posdb_mem_keys: np.ndarray | None = None
                            ) -> Collection:
     """A new Collection under ``base_dir`` holding exactly these records,
     one run per database. Key arrays are structured arrays in each
     database's key layout (the byte images are the same in both
     packages), tombstone-free, as ``get_all()`` gives them; unsorted
-    input is sorted first."""
+    input is sorted first.
+
+    ``posdb_mem_keys`` (tombstones allowed, as the other store's
+    ``posdb.mem.batch().keys`` gives them) go into the posdb memtable
+    after the runs, so a device index built over the carried collection
+    sees the same base and delta as one built over the original."""
     coll = Collection(name, base_dir, device=device)
     for rdb, keys, dtype, blobs in (
             (coll.posdb, posdb_keys, posdb.KEY_DTYPE, None),
@@ -45,4 +51,7 @@ def collection_from_arrays(name: str, base_dir: str | Path,
         rdb.add_run(batch)
     coll.num_docs = int(num_docs)
     coll.dump_all()
+    if posdb_mem_keys is not None and len(posdb_mem_keys):
+        coll.posdb.add(np.ascontiguousarray(posdb_mem_keys).view(
+            posdb.KEY_DTYPE))
     return coll

@@ -1,15 +1,21 @@
 """Search engine front end — query in, ranked page out (the flat path).
 
 Reference: ``Msg40::getResults`` (``Msg40.cpp:171``) orchestrates
-docid ranking then per-result title/summary; here one collection is
-compile → pack → score on the collection's device → titledb lookup.
+docid ranking then per-result title/summary. Two routes rank docids:
+
+* the flat path (:func:`search`): compile → pack → score on the
+  collection's device → titledb lookup;
+* the device-resident route (:func:`search_device_batch`,
+  :func:`search_device`): the collection's :class:`DeviceIndex` holds the
+  postings on the device and answers a batch of queries per round trip.
 
 Docid-range multipass (``Msg39.cpp:277-305``): when the candidate set
 exceeds ``max_docs_per_pass``, the engine scores candidate slices and
 merges the top-k across passes.
 
 Not carried yet: the speller (``suggestion`` is always None), the
-result cache, deadlines, and the device-resident route.
+result cache, deadlines, the resident serving loop and the background
+rebuild of the device index.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from ..index.collection import Collection
 from ..utils import trace
 from . import summary as summary_mod
 from .compiler import QueryPlan, compile_query
+from .devindex import DeviceIndex
 from .packer import pack_pass, prepare_query
 from .rerank import post_query_rerank
 from .scorer import run_query
@@ -69,11 +76,18 @@ class SearchResults:
 def build_results(get_doc, docids, scores, plan: QueryPlan, *,
                   topk: int, with_snippets: bool = True,
                   site_cluster: bool = True,
-                  dedup_content: bool = True) -> tuple[list[Result], int]:
+                  dedup_content: bool = True, site_of=None,
+                  page: tuple[int, int] | None = None
+                  ) -> tuple[list[Result], int]:
     """Msg40's post-merge stage: walk merged candidates best-first, fetch
     titlerecs, apply content-hash dedup and site clustering (at most
     MAX_PER_SITE per site), build summaries. Returns (results, number
-    hidden by clustering/dedup)."""
+    hidden by clustering/dedup).
+
+    ``site_of`` (docid → sitehash, the clusterdb column) clusters before
+    any titledb read. ``page`` = (offset, n): with ``site_of``, rows
+    past the PQR_SCAN window and outside the page keep only docid and
+    score (no titledb read; content dedup skips them)."""
     words = plan.match_words()
     per_site: dict = {}
     seen_hashes: set[int] = set()
@@ -83,6 +97,21 @@ def build_results(get_doc, docids, scores, plan: QueryPlan, *,
         if len(results) >= topk:
             break
         if score <= 0.0:
+            continue
+        if site_cluster and site_of is not None:
+            sh = site_of(int(docid))
+            if sh and per_site.get(sh, 0) >= MAX_PER_SITE:
+                clustered += 1
+                continue
+        rank = len(results)
+        if (page is not None and site_of is not None
+                and rank >= PQR_SCAN
+                and not (page[0] <= rank < page[0] + page[1])):
+            if site_cluster:
+                sh = site_of(int(docid))
+                if sh:
+                    per_site[sh] = per_site.get(sh, 0) + 1
+            results.append(Result(docid=int(docid), score=float(score)))
             continue
         rec = get_doc(int(docid))
         r = Result(docid=int(docid), score=float(score))
@@ -96,7 +125,11 @@ def build_results(get_doc, docids, scores, plan: QueryPlan, *,
                     clustered += 1
                     continue
                 seen_hashes.add(ch)
-            if site_cluster and r.site:
+            if site_cluster and site_of is not None:
+                sh = site_of(int(docid))
+                if sh:
+                    per_site[sh] = per_site.get(sh, 0) + 1
+            elif site_cluster and r.site:
                 seen = per_site.get(r.site, 0)
                 if seen >= MAX_PER_SITE:
                     clustered += 1
@@ -228,3 +261,79 @@ def search(coll: Collection, q: str | QueryPlan, *, topk: int = 10,
         query=plan.raw, total_matches=total, results=page,
         clustered=clustered, passes=passes,
         facets=compute_facets(plan, docids[order], get_doc))
+
+
+# ---------------------------------------------------- device-resident route
+
+def get_device_index(coll: Collection):
+    """The collection's device-resident index, built at first use and
+    refreshed when the posdb version moves: a memtable change folds into
+    the delta (O(memtable)), a dump rebuilds the base in this call. The
+    reference rebuilds the base in a background thread while the old
+    index serves; that waits for the port's serving layer."""
+    di = getattr(coll, "_device_index", None)
+    if di is None:
+        di = coll._device_index = build_device_index(coll)
+    else:
+        di.refresh()
+    return di
+
+
+def build_device_index(coll: Collection, device=None):
+    """A fresh DeviceIndex over ``coll`` (on the collection's device
+    unless ``device`` is given)."""
+    return DeviceIndex(coll, device=device)
+
+
+def search_device_batch(coll: Collection, queries, *, topk: int = 10,
+                        lang: int = 0, with_snippets: bool = True,
+                        site_cluster: bool = True, offset: int = 0,
+                        resident: bool = False) -> list[SearchResults]:
+    """Batched device-resident search: the batch's queries are planned on
+    the host and answered in waves on the collection's device, one fetch
+    per round; then the page build runs per query, with clusterdb site
+    clustering."""
+    if resident:
+        raise NotImplementedError(
+            "resident=True needs the resident serving loop, not ported yet "
+            "(ROADMAP item 7)")
+    plans = [q if isinstance(q, QueryPlan) else compile_query(q, lang=lang)
+             for q in queries]
+    ktot = max((topk + offset) * 2, 64)
+    di = get_device_index(coll)
+    with trace.span("query.device_batch", queries=len(plans)):
+        raw = di.search_batch(plans, topk=ktot, lang=lang)
+
+    # one titlerec memo for the whole batch
+    doc_memo: dict[int, dict | None] = {}
+
+    def get_doc(d: int):
+        d = int(d)
+        if d not in doc_memo:
+            if len(doc_memo) >= 4096:
+                doc_memo.clear()
+            doc_memo[d] = docproc.get_document(coll, docid=d)
+        return doc_memo[d]
+
+    out = []
+    with trace.span("query.results_batch", queries=len(plans)):
+        for plan, (docids, scores, n_matched) in zip(plans, raw):
+            results, clustered = build_results(
+                get_doc, docids, scores, plan,
+                topk=max(topk + offset, PQR_SCAN), with_snippets=False,
+                site_cluster=site_cluster, site_of=di.sitehash_of,
+                page=(offset, topk))
+            page = finish_page(
+                results, offset=offset, topk=topk, conf=coll.conf,
+                qlang=plan.lang, langid_of=di.langid_of, get_doc=get_doc,
+                words=plan.match_words(), with_snippets=with_snippets)
+            out.append(SearchResults(
+                query=plan.raw, total_matches=n_matched, results=page,
+                clustered=clustered,
+                facets=compute_facets(plan, docids, get_doc)))
+    return out
+
+
+def search_device(coll: Collection, q, **kw) -> SearchResults:
+    """One query through the device-resident route."""
+    return search_device_batch(coll, [q], **kw)[0]

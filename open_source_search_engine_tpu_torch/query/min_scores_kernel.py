@@ -18,23 +18,17 @@ single-term top-``MAX_TOP`` sums, the P×P pair cross products within
   (every real posting has densityrank ≥ 1 or a non-body hashgroup).
 * The kernel builds at first use with ``nvcc`` into
   ``build/torch_kernels/`` at the repository root (rebuilt when the
-  source changes) and is bound through ``ctypes``.
+  source changes) and is bound through ``ctypes`` (:mod:`.cuda_build`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
-import numpy as np
 import torch
 
 from ..index.posdb import HASHGROUP_END, HASHGROUP_INLINKTEXT
-from . import weights
+from . import cuda_build, weights
 from .packer import _HG_SHIFT, _DEN_SHIFT, _SPAM_SHIFT, _SYN_SHIFT
 
 QDIST = 2.0  # default query-distance (Posdb.cpp:6886)
@@ -51,14 +45,6 @@ KERNEL_P = 16
 launches = 0
 #: calls of the plain version, whatever the device
 plain_calls = 0
-
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "min_scores.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas=-v")
-_lib = None
-
 
 # ---------------------------------------------------------------- plain
 
@@ -189,64 +175,14 @@ def min_scores_plain(cube: torch.Tensor, pvalid: torch.Tensor,
 
 # --------------------------------------------------------------- kernel
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
-        or "/usr/local/cuda"
-    cand = Path(home) / "bin" / "nvcc"
-    found = str(cand) if cand.exists() else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found (set CUDA_HOME)")
-    return found
+def build():
+    """Compile ``csrc/min_scores.cu`` (see :func:`cuda_build.build`)."""
+    return cuda_build.build("min_scores")
 
 
-def build() -> tuple[Path, str]:
-    """Compile ``csrc/min_scores.cu`` into a shared library unless one
-    built from the same source and flags exists. Returns its path and
-    the compiler's report (``-Xptxas=-v``: registers, spills)."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()
-                         ).hexdigest()[:16]
-    so = BUILD_DIR / f"libmin_scores_{tag}.so"
-    if so.exists():
-        return so, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr}{proc.stdout}")
-    os.replace(tmp, so)
-    return so, proc.stderr + proc.stdout
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()[0]))
-        fn = lib.osse_min_scores
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_uint, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        _lib = lib
-    return _lib
-
-
-#: bit h set when hashgroup h is body-ish (weights.IN_BODY)
-_IN_BODY_MASK = sum(1 << h for h, b in enumerate(weights.IN_BODY) if b)
-_kernel_table_cache: dict = {}
-
-
-def _kernel_tables(device: torch.device) -> torch.Tensor:
-    """The kernel's weight tables on ``device``: the 16 hashgroup
-    weights, then the 32 density weights (float32)."""
-    t = _kernel_table_cache.get(device)
-    if t is None:
-        t = torch.from_numpy(np.concatenate(
-            [weights.HASH_GROUP_WEIGHTS, weights.DENSITY_WEIGHTS])).to(device)
-        _kernel_table_cache[device] = t
-    return t
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
+             ctypes.c_void_p, ctypes.c_void_p]
 
 
 def min_scores_fused(cube: torch.Tensor, freq_weight: torch.Tensor,
@@ -272,26 +208,20 @@ def min_scores_fused(cube: torch.Tensor, freq_weight: torch.Tensor,
     if P != KERNEL_P or T < 1:
         raise ValueError(f"kernel takes T >= 1 and P = {KERNEL_P}, got "
                          f"T={T} P={P}")
-    for name, t, dtype, shape in (("cube", cube, torch.int32, (T, P, D)),
-                                  ("freq_weight", freq_weight,
-                                   torch.float32, (T,)),
-                                  ("counts", counts, torch.bool, (T,))):
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: want {dtype} {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if t.device != cube.device or not t.is_contiguous():
-            raise ValueError(f"{name}: must be contiguous on {cube.device}")
+    cuda_build.check_inputs(cube.device, (
+        ("cube", cube, torch.int32, (T, P, D)),
+        ("freq_weight", freq_weight, torch.float32, (T,)),
+        ("counts", counts, torch.bool, (T,))))
     out = torch.empty(D, dtype=torch.float32, device=cube.device)
     if D == 0:
         return out
-    lib = _load()
-    tables = _kernel_tables(cube.device)
+    fn = cuda_build.load("min_scores", "osse_min_scores", _ARGTYPES)
+    tables = cuda_build.kernel_tables(cube.device)
     with torch.cuda.device(cube.device):
         stream = torch.cuda.current_stream(cube.device).cuda_stream
-        rc = lib.osse_min_scores(cube.data_ptr(), freq_weight.data_ptr(),
-                                 counts.data_ptr(), tables.data_ptr(),
-                                 _IN_BODY_MASK, T, D, out.data_ptr(),
-                                 stream)
+        rc = fn(cube.data_ptr(), freq_weight.data_ptr(), counts.data_ptr(),
+                tables.data_ptr(), cuda_build.IN_BODY_MASK, T, D,
+                out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"min_scores kernel launch failed: CUDA error "
                            f"{rc}")

@@ -56,6 +56,28 @@ def pack_payload(f: dict[str, np.ndarray], syn: int = 0) -> np.ndarray:
     )
 
 
+#: resident impacts are stored scaled by 1/IMPACT_SCALE (an exact
+#: power-of-two exponent shift): inlink-heavy docs can push the raw
+#: bound past float16's 65504 maximum, and an inf in the dense rows
+#: would turn the phase-1 selector product's zero lanes into NaN.
+#: Consumers multiply back after the float32 cast.
+IMPACT_SCALE = 16.0
+
+
+def demote_impacts(a: np.ndarray) -> np.ndarray:
+    """float32 per-(term, doc) impact bounds → float16 at 1/IMPACT_SCALE,
+    rounded UP. Impacts are phase-1 upper bounds, so rounding must never
+    go down: a nearest-rounding cast that landed low is nudged up one
+    ulp. The 1e-30 presence floor would underflow to 0.0 and erase the
+    posting from the intersection mask, so it lands on the smallest
+    float16 subnormal."""
+    s = a * np.float32(1.0 / IMPACT_SCALE)
+    h = s.astype(np.float16)
+    low = h.astype(np.float32) < s
+    h = np.where(low, np.nextafter(h, np.float16(np.inf)), h)
+    return np.maximum(h, np.finfo(np.float16).smallest_subnormal)
+
+
 def _bucket(n: int, floor: int = 8) -> int:
     """Next power of two ≥ n (≥ floor)."""
     b = floor

@@ -49,8 +49,8 @@ def min_scores(cube, pvalid, freq_weight, single_counts):
 
 
 def final_multipliers(siterank, doclang, qlang):
-    """Siterank/language multipliers (Posdb.cpp:7250-7257), [D]."""
-    qlang = int(qlang)
+    """Siterank/language multipliers (Posdb.cpp:7250-7257): [D] for an
+    int ``qlang``, [B, D] for a [B, 1] tensor of query languages."""
     same = (doclang == 0) | (doclang == qlang) | (qlang == 0)
     lang_mult = torch.where(
         same, torch.tensor(weights.SAME_LANG_WEIGHT, device=same.device),
@@ -60,20 +60,33 @@ def final_multipliers(siterank, doclang, qlang):
 
 
 def presence_table_ok(present, table):
-    """Boolean-expression gate: pack per-doc presence bits and index the
-    query's truth table (Query.h:266)."""
-    T, D = present.shape
-    powers = (1 << torch.arange(T, dtype=torch.int32,
+    """Boolean-expression gate: pack per-doc presence bits ``[..., T, D]``
+    and index the query's truth table ``[..., TABLE_SIZE]``
+    (Query.h:266)."""
+    T = present.shape[-2]
+    powers = (1 << torch.arange(T, dtype=torch.int64,
                                 device=present.device))[:, None]
-    idx = (present.to(torch.int32) * powers).sum(dim=0)
-    return table[idx.clamp(0, TABLE_SIZE - 1)]
+    idx = (present.to(torch.int64) * powers).sum(dim=-2)
+    return torch.gather(table, -1, idx.clamp(0, TABLE_SIZE - 1))
+
+
+def match_gates(present, required, negative, table, use_table=True):
+    """Per doc: every required group present, no negative group present,
+    and (with ``use_table``) the truth table satisfied. ``present``
+    ``[..., T, D]``, flags ``[..., T]``, table ``[..., TABLE_SIZE]``."""
+    ok = torch.where(required[..., None], present, True).all(dim=-2)
+    ok = ok & ~torch.where(negative[..., None], present, False).any(dim=-2)
+    if use_table:
+        ok = ok & presence_table_ok(present, table)
+    return ok
 
 
 def top_k(final: torch.Tensor, k: int):
-    """(scores, indices) of the k largest, ties by the lower index —
-    ``lax.top_k``'s order, through a stable descending sort."""
+    """(scores, indices) of the k largest along the last axis, ties by
+    the lower index — ``lax.top_k``'s order, through a stable descending
+    sort."""
     s, i = torch.sort(final, descending=True, stable=True)
-    return s[:k], i[:k]
+    return s[..., :k], i[..., :k]
 
 
 def score_cube(cube, pvalid, freq_weight, required, negative, scored,
@@ -87,10 +100,8 @@ def score_cube(cube, pvalid, freq_weight, required, negative, scored,
     min_score, present = min_scores(cube, pvalid, freq_weight, counts)
     # match: every required group present, no negative present, truth
     # table satisfied, inside the real candidate range
-    req_ok = torch.where(required[:, None], present, True).all(dim=0)
-    neg_ok = ~torch.where(negative[:, None], present, False).any(dim=0)
     in_range = torch.arange(D, device=cube.device) < n_docs
-    match = (req_ok & neg_ok & presence_table_ok(present, table)
+    match = (match_gates(present, required, negative, table)
              & in_range & (min_score < BIG))
     final = min_score * final_multipliers(siterank, doclang, qlang)
     final = torch.where(match, final, 0.0)

@@ -88,6 +88,29 @@ DENSITY_WEIGHTS = np.array([
 HASH_GROUP_WEIGHTS = _hash_group_weights()
 IN_BODY = _in_body()
 
+
+def _impact_density_weights() -> np.ndarray:
+    # the reference's initWeights loop: 0.35, times 1.03445 per rank in
+    # float64, clamped at 1.0 (Posdb.cpp:1117-1125)
+    w = np.zeros(len(DENSITY_WEIGHTS), dtype=np.float32)
+    s = 0.35
+    for i in range(len(w)):
+        w[i] = min(s, 1.0)
+        s *= 1.03445
+    return w
+
+
+#: the build-time impact bounds (``devindex._posscore_np``) weigh
+#: density with the running-product table, as the reference's build does;
+#: it differs from DENSITY_WEIGHTS in the last bit at 10 of 32 ranks, and
+#: the resident impact columns must match the reference's bit for bit
+IMPACT_DENSITY_WEIGHTS = _impact_density_weights()
+#: (i+1)/16 per word-spam rank (Posdb.cpp:1128-1129)
+WORD_SPAM_WEIGHTS = ((np.arange(16) + 1.0) / 16).astype(np.float32)
+#: sqrt(1+i): the inlink-text spam field holds the linker's siterank
+#: (Posdb.cpp:1136-1137)
+LINKER_WEIGHTS = np.sqrt(1.0 + np.arange(16)).astype(np.float32)
+
 #: mapped hashgroup for single-term dedup: body-ish groups collapse to
 #: BODY (Posdb.cpp:3126-3127 "if s_inBody[mhg] mhg = HASHGROUP_BODY")
 MAPPED_HASHGROUP = np.where(

@@ -1,0 +1,265 @@
+"""The port's device-resident route against the JAX package (CPU).
+
+Both packages build a ``DeviceIndex`` over the same records:
+
+* the route corpus, ``route_docs(48)`` as one index under ``ROUTE_ENV``,
+  dumped to a run: there the reference routes ``zeta`` and ``alpha`` to
+  F1 (``alpha`` escalating once), ``alpha beta``, ``alpha gamma`` and
+  ``alpha beta gamma`` to FD, and ``boxes dogs`` to F2;
+* the golden corpus, indexed without a dump, so every posting rides the
+  delta; the port's copy is carried over with ``collection_from_arrays``
+  (the memtable keys included).
+
+Every resident column must be bitwise equal, every plan field equal,
+route and escalation counts equal; ``search_batch`` results agree in
+match counts (exact), scores (rtol=1e-5, the fused route's tolerance in
+``tests/test_pallas.py``) and docids by complete tie runs. The golden
+suite runs through the port's ``search_device``, and a base + delta case
+(adds, a delete and a re-index after the build) is compared after each
+refresh."""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from open_source_search_engine_tpu.build import docproc as jdocproc
+from open_source_search_engine_tpu.index.collection import \
+    Collection as JCollection
+from open_source_search_engine_tpu.query import engine as jengine
+from open_source_search_engine_tpu.query.compiler import \
+    compile_query as jcompile
+from open_source_search_engine_tpu.query.devindex import \
+    DeviceIndex as JDeviceIndex
+from open_source_search_engine_tpu_torch.build import docproc
+from open_source_search_engine_tpu_torch.corpus import (
+    ROUTE_ENV, ROUTE_QUERIES, assert_tie_run_parity, route_docs)
+from open_source_search_engine_tpu_torch.index.carry import \
+    collection_from_arrays
+from open_source_search_engine_tpu_torch.index.collection import Collection
+from open_source_search_engine_tpu_torch.query import engine
+from open_source_search_engine_tpu_torch.query.compiler import compile_query
+from open_source_search_engine_tpu_torch.query.devindex import DeviceIndex
+from tests.golden.corpus import GOLDEN_QUERIES, golden_docs
+from tests.test_golden import _check
+
+#: the tier-1 run shares the host's cores among several workers, and
+#: these small tensors gain nothing from intra-op threads
+torch.set_num_threads(1)
+
+RTOL = 1e-5
+ROUTE_SET = list(ROUTE_QUERIES) + ["alpha gamma", "alpha beta gamma",
+                                   "beta", "dogs", "gamma -zeta"]
+COLUMNS = ("payload", "docc", "doc", "imp", "rs", "cnt", "dense_imp",
+           "dense_rs", "dense_cnt", "cube", "siterank", "doclang", "dead")
+
+
+@pytest.fixture(scope="module")
+def route_env():
+    saved = {k: os.environ.get(k) for k in ROUTE_ENV}
+    os.environ.update(ROUTE_ENV)
+    yield
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+def _carry(jc, base):
+    tit = jc.titledb.get_all()
+    runs = [r.batch().keys for r in jc.posdb.runs]
+    return collection_from_arrays(
+        jc.name, base,
+        np.concatenate(runs) if runs else jc.posdb.mem.batch().keys[:0],
+        tit.keys, tit.payloads(), jc.clusterdb.get_all().keys,
+        jc.sectiondb.rdb.get_all().keys, jc.num_docs, device="cpu",
+        posdb_mem_keys=jc.posdb.mem.batch().keys)
+
+
+@pytest.fixture(scope="module")
+def pairs(route_env, tmp_path_factory):
+    """corpus → (JAX DeviceIndex, port DeviceIndex over the same
+    records)."""
+    out = {}
+    jr = JCollection("route", tmp_path_factory.mktemp("jroute"))
+    jdocproc.index_batch(jr, route_docs(48))
+    jr.posdb.dump()
+    jr.titledb.dump()
+    out["route"] = (jr, _carry(jr, tmp_path_factory.mktemp("troute")))
+    jg = JCollection("golden", tmp_path_factory.mktemp("jgold"))
+    for url, html in golden_docs().items():
+        jdocproc.index_document(jg, url, html)
+    out["golden"] = (jg, _carry(jg, tmp_path_factory.mktemp("tgold")))
+    return {k: (JDeviceIndex(jc), DeviceIndex(tc))
+            for k, (jc, tc) in out.items()}
+
+
+def _assert_column(jdi, tdi, name):
+    """One resident column, bitwise (uint32 columns as int32 views)."""
+    want = np.asarray(getattr(jdi, "d_" + name))
+    if want.dtype == np.uint32:
+        want = want.view(np.int32)
+    have = tdi.columns()[name].numpy()
+    assert have.dtype == want.dtype and have.shape == want.shape, name
+    assert np.array_equal(have, want), name
+
+
+def _plans_equal(jp, tp, label):
+    for f in dataclasses.fields(jp):
+        a, b = getattr(jp, f.name), getattr(tp, f.name)
+        if isinstance(a, np.ndarray):
+            assert b.dtype == a.dtype and np.array_equal(a, b), \
+                (label, f.name)
+        else:
+            assert a == b, (label, f.name, a, b)
+
+
+# Each test loops over its queries and columns rather than parametrizing
+# them: the tier-1 run schedules whole files by test count, largest
+# first, and a file of a few tests keeps to the end of that order.
+
+@pytest.mark.parametrize("corpus", ["route", "golden"])
+def test_columns_match(pairs, corpus):
+    for name in COLUMNS:
+        _assert_column(*pairs[corpus], name)
+
+
+def test_directories_match(pairs):
+    for corpus, (jdi, tdi) in pairs.items():
+        for attr in ("dir_termids", "base_df", "dir_dstart", "dir_pstart",
+                     "base_docids", "dir2_termids", "delta_df",
+                     "dir2_dstart", "dir2_pstart", "all_docids", "tomb_df"):
+            assert np.array_equal(getattr(jdi, attr), getattr(tdi, attr)), \
+                (corpus, attr)
+        for attr in ("D_cap", "Nb", "Mb", "N2", "M2", "Vc",
+                     "cube_zero_slot", "dense_slot_of", "cube_slot_of"):
+            assert getattr(jdi, attr) == getattr(tdi, attr), (corpus, attr)
+
+
+@pytest.mark.parametrize("corpus,queries", [("route", ROUTE_SET),
+                                            ("golden", GOLDEN_QUERIES)])
+def test_plans_match(pairs, corpus, queries):
+    jdi, tdi = pairs[corpus]
+    for q in queries:
+        _plans_equal(jdi.plan(jcompile(q)), tdi.plan(compile_query(q)), q)
+
+
+def test_routes_and_escalations_match(pairs):
+    """Every route serves a query, and the escalation ladder runs."""
+    jdi, tdi = pairs["route"]
+    for di in (jdi, tdi):
+        di.route_counts = {"f1": 0, "fd": 0, "f2": 0}
+        di.escalations = 0
+    want = jdi.search_batch(ROUTE_SET, topk=64)
+    got = tdi.search_batch(ROUTE_SET, topk=64)
+    assert tdi.route_counts == jdi.route_counts
+    assert min(tdi.route_counts.values()) >= 1, tdi.route_counts
+    assert tdi.escalations == jdi.escalations >= 1
+    for q, a, b in zip(ROUTE_SET, got, want):
+        assert_tie_run_parity(a, b, q)
+    # each pinned query alone takes its route
+    for q, route in ROUTE_QUERIES.items():
+        for di in (jdi, tdi):
+            di.route_counts = {"f1": 0, "fd": 0, "f2": 0}
+        assert_tie_run_parity(tdi.search(q, topk=16),
+                              jdi.search(q, topk=16), q)
+        assert tdi.route_counts[route] == 1, q
+        assert tdi.route_counts == jdi.route_counts, q
+
+
+def test_golden_batch_matches(pairs):
+    jdi, tdi = pairs["golden"]
+    want = jdi.search_batch(GOLDEN_QUERIES, topk=64)
+    got = tdi.search_batch(GOLDEN_QUERIES, topk=64)
+    for q, a, b in zip(GOLDEN_QUERIES, got, want):
+        assert_tie_run_parity(a, b, q)
+
+
+@pytest.fixture(scope="module")
+def golden_coll(tmp_path_factory):
+    c = Collection("golden", tmp_path_factory.mktemp("tgolden_dev"),
+                   device="cpu")
+    c.conf.pqr_enabled = False
+    for url, html in golden_docs().items():
+        docproc.index_document(c, url, html)
+    return c
+
+
+def test_golden_device_path(golden_coll):
+    for q in GOLDEN_QUERIES:
+        res = engine.search_device(golden_coll, q, topk=10,
+                                   site_cluster=False, with_snippets=False)
+        _check(q, res.total_matches,
+               [(r.docid, r.score) for r in res.results], "torch-device")
+
+
+def test_search_device_batch_matches_jax_engine(tmp_path):
+    jc = JCollection("g", tmp_path / "j")
+    tc = Collection("g", tmp_path / "t", device="cpu")
+    for url, html in golden_docs().items():
+        jdocproc.index_document(jc, url, html)
+        docproc.index_document(tc, url, html)
+    qs = GOLDEN_QUERIES[:12]
+    want = jengine.search_device_batch(jc, qs, topk=10, with_snippets=True)
+    got = engine.search_device_batch(tc, qs, topk=10, with_snippets=True)
+    for q, a, b in zip(qs, got, want):
+        assert a.total_matches == b.total_matches, q
+        assert a.clustered == b.clustered, q
+        np.testing.assert_allclose([r.score for r in a.results],
+                                   [r.score for r in b.results], rtol=RTOL)
+        assert [(r.url, r.title, r.snippet) for r in a.results] == \
+            [(r.url, r.title, r.snippet) for r in b.results], q
+    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
+        engine.search_device_batch(tc, qs[:1], resident=True)
+
+
+def test_delta_refresh_matches_reference(tmp_path):
+    """Adds, a delete and a re-index land in the delta of both packages'
+    index (no base rebuild); columns, plans and results stay equal after
+    each refresh."""
+    jc = JCollection("inc", tmp_path / "j")
+    tc = Collection("inc", tmp_path / "t", device="cpu")
+    both = ((jc, jdocproc), (tc, docproc))
+
+    def page(i, body):
+        return (f"<html><head><title>Doc {i}</title></head><body>"
+                f"<p>{body}</p></body></html>")
+    for c, m in both:
+        for i in range(30):
+            m.index_document(c, f"http://inc{i % 5}.test/d{i}",
+                             page(i, f"stable corpus text number{i} here."))
+        c.posdb.dump()
+    jdi, tdi = JDeviceIndex(jc), DeviceIndex(tc)
+    queries = ["stable", "freshterm", "rewrittenterm", "number7",
+               "stable corpus", "number12"]
+
+    def compare(step):
+        assert jdi.refresh() == tdi.refresh(), step
+        for name in COLUMNS:
+            _assert_column(jdi, tdi, name)
+        for q in queries:
+            _plans_equal(jdi.plan(jcompile(q)), tdi.plan(compile_query(q)),
+                         (step, q))
+        for q, a, b in zip(queries, tdi.search_batch(queries, topk=16),
+                           jdi.search_batch(queries, topk=16)):
+            assert_tie_run_parity(a, b, (step, q))
+
+    for i in range(3):
+        for c, m in both:
+            m.index_document(c, f"http://inc9.test/new{i}", page(
+                100 + i, f"freshterm arrives number{i} stable."))
+        compare(f"add {i}")
+    for c, m in both:
+        assert m.remove_document(c, "http://inc0.test/d5")
+    compare("delete")
+    for c, m in both:
+        m.index_document(c, "http://inc2.test/d7",
+                         page(7, "rewrittenterm stable now."))
+    compare("re-index")
+    assert tdi.full_rebuilds == 1 and tdi.delta_rebuilds == 6
+    assert tdi.search("rewrittenterm")[2] == 1
+    assert tdi.search("number7")[2] == 0
+    assert tdi.search("stable")[2] == 32

@@ -15,6 +15,7 @@ import torch
 
 from open_source_search_engine_tpu_torch.device import resolve_device
 from open_source_search_engine_tpu_torch.index.collection import Collection
+from open_source_search_engine_tpu_torch.query.devindex import DeviceIndex
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "open_source_search_engine_tpu_torch"
@@ -25,12 +26,16 @@ sys.path.insert(0, {root!r})
 from open_source_search_engine_tpu_torch.__main__ import main
 from open_source_search_engine_tpu_torch.build import docproc
 from open_source_search_engine_tpu_torch.index.collection import Collection
-from open_source_search_engine_tpu_torch.query import engine
+from open_source_search_engine_tpu_torch.query import (
+    devindex, engine, fd_scores_kernel)
 c = Collection("iso", tempfile.mkdtemp(), device="cpu")
 docproc.index_document(c, "http://a.test/x",
                        "<html><title>alpha</title><p>alpha beta.</p></html>")
 res = engine.search(c, "alpha beta", topk=5)
 assert res.total_matches == 1, res
+res = engine.search_device(c, "alpha beta", topk=5)
+assert res.total_matches == 1, res
+assert devindex.DeviceIndex(c).device.type == "cpu"
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "open_source_search_engine_tpu"
@@ -80,6 +85,9 @@ def test_default_device_raises_without_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Collection("nocuda", tmp_path)
     assert not (tmp_path / "coll").exists()
+    cpu = Collection("cpu", tmp_path, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DeviceIndex(cpu, device="cuda")
 
 
 def test_cli_default_device_fails_without_cuda(tmp_path):
