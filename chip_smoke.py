@@ -3,7 +3,12 @@
 
 Run from the repository root::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` (another checkout of the port, e.g. an unpacked
+``git archive`` of the parent commit) also builds that checkout's K1 and
+K2 and times them, with the same timer, on every input this script
+times, after checking them bitwise against this checkout's.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -11,14 +16,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
    its name and power limit as ``nvidia-smi`` reports them;
 2. build every kernel of the query paths from the sources in this
    checkout, in parallel (K1: ``csrc/min_scores.cu``, K2:
-   ``csrc/fd_scores.cu``);
-3. hold K1 against its plain PyTorch version on the card: random cubes
-   (T in {4, 8}, P = 16, D in {1000, 1024, 65536}; T in {16, 32, 64,
-   128} at D = 1000) and an all-zero cube, rtol=1e-5, atol=1e-7; hold
-   K2 against its plain version: both variants (with and without a
-   posting tail), T in {4, 8}, D in {1024, 131072}, B = 4, random
-   resident cubes with some quarters on the zero slot and some docs
-   dead;
+   ``csrc/fd_scores.cu``), and read each instantiation's registers and
+   static shared memory from the ``-Xptxas=-v`` report;
+3. hold K1 bitwise against its plain PyTorch version on the card: random
+   cubes (T in {4, 8}, P = 16, D in {1000, 1001, 1024, 65536}; T in {16,
+   32, 64, 128} at D = 1000), batched waves of B = 3 at D = 1001 (rows
+   that are not 16-byte aligned, a ragged last tile; T in {4, 8, 16,
+   32}) and an all-zero cube; hold K2 bitwise against its plain version:
+   both variants (with and without a posting tail), T in {4, 8}, D in
+   {1001, 1024, 131072}, B = 4, random resident cubes with some quarters
+   on the zero slot and some docs dead;
 4. the flat path: index the synthetic benchmark corpus (N_DOCS docs)
    through ``docproc.index_batch`` in chunks of 512, then answer
    N_QUERIES unique queries through ``engine.search`` with the kernel
@@ -26,18 +33,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    none may take the plain version. 16 of the queries and the long
    queries (17 to 65 term groups) run again on ``device="cpu"`` over the
    same records: totals and docids equal, scores within rtol=1e-5. K1 is
-   timed beside its plain version and its bound on the largest cube;
+   timed beside its plain version and its bound on the largest cube, and
+   on the largest real cubes of 5-8 and 9-16 word queries (T = 8, 16);
 5. the device-resident route (the main path): build the DeviceIndex
    over the same collection (timed), answer the N_QUERIES queries as one
    ``engine.search_device_batch`` batch with every counter reset just
-   before (every FD wave launches K2, K1 runs on the F1 and F2 waves, no
-   plain version runs), then each query alone for p50 / max latency.
-   Every query's total, scores (rtol=1e-5) and docids (by complete tie
-   runs) must equal the flat path's. The device idle share over one
-   batch comes from the profiler; K2 on the largest FD wave of the
-   batch, and K1 on the largest cube the route gave it, are held against
-   their plain versions and timed (L2 cold) beside their bounds. The
-   route corpus (``route_docs(48)`` under ``ROUTE_ENV``) then serves F1,
+   before (every FD wave launches K2; K1 makes one launch per F1 wave
+   call and one per F2 query, and the script counts both; no plain
+   version runs), then each query alone for p50 / max latency. Every
+   query's total, scores (rtol=1e-5) and docids (by complete tie runs)
+   must equal the flat path's. The device busy time and idle share over
+   one warm batch, and K2's share of it, come from the profiler; K2 on
+   the largest FD wave of the batch, and K1 on the largest batched F1
+   call ``[B, T, 16, κ2]``, are held bitwise against their plain
+   versions and timed (L2 cold) beside their bounds. A batch of 16
+   queries of 5-8 words (T = 8) must equal the flat path too, and K2 is
+   checked and timed on its largest wave. The route corpus (``route_docs(48)`` under ``ROUTE_ENV``) then serves F1,
    FD and F2 queries on the card with results equal to the same index on
    ``device="cpu"`` (escalation counts are compared on the CPU only: the
    card's float32 scatter-add sums in no fixed order);
@@ -67,7 +78,6 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
 
 P = 16
-TOL = dict(rtol=1e-5, atol=1e-7)
 
 #: the main path's corpus (bench.py's N_DOCS) and unique queries. At
 #: 65,536 docs or more the commonest terms fill a whole scoring pass, so
@@ -88,7 +98,11 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median per-call milliseconds of ``fn`` on the current stream, by
     CUDA events around each call, with L2 cold: a 256 MiB write before
     each call evicts the H100's 50 MB L2, so inputs come from HBM and
-    the time is comparable with a bound at the HBM rate."""
+    the time is comparable with a bound at the HBM rate. A ~1 ms spin
+    kernel after the write keeps the card busy while the host enqueues
+    the first event and ``fn``'s launches, so the time is the device's
+    alone, not the host's launch overhead (tens of microseconds a
+    wrapper call, as much as a small kernel takes)."""
     import torch
     global _l2_flush
     if _l2_flush is None:
@@ -100,6 +114,7 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         _l2_flush.zero_()
+        torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -111,8 +126,9 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def report_profile(label: str, prof, wall_s: float):
     """Log the device busy and idle share of a profiled window (device-side
     events only: a host op's own entry would count its kernels' time a
-    second time) and its six largest device events. Returns the idle
-    share, or None when the profiler saw no device time."""
+    second time) and its six largest device events. Returns (idle share,
+    device busy ms, {kernel: (ms, calls)} for K1's and K2's kernels), or
+    None when the profiler saw no device time."""
     evs = [e for e in prof.key_averages()
            if str(getattr(e, "device_type", "")).endswith("CUDA")
            and getattr(e, "self_device_time_total", 0) > 0]
@@ -128,7 +144,78 @@ def report_profile(label: str, prof, wall_s: float):
     for e in sorted(evs, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"[profile]   {e.key[:60]}: "
             f"{e.self_device_time_total / 1e3:.3f} ms, {e.count} calls")
-    return idle
+    ours = {}
+    for name in ("min_scores", "fd_scores"):
+        mine = [e for e in evs if f"{name}_" in e.key]
+        ours[name] = (sum(e.self_device_time_total for e in mine) / 1e3,
+                      sum(e.count for e in mine))
+        log(f"[profile]   {name} kernels: {ours[name][0]:.3f} ms "
+            f"({ours[name][0] * 1e3 / dev_us:.1%} of busy), "
+            f"{ours[name][1]} calls")
+    return idle, dev_us / 1e3, ours
+
+
+def ptxas_usage(report: str) -> dict:
+    """{entry: (registers, static shared bytes)} from an ``nvcc
+    -Xptxas=-v`` report."""
+    import re
+    out, entry = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[entry] = (int(m.group(1)), int(smem.group(1)) if smem else 0)
+            entry = None
+    return out
+
+
+def usage_of(usage: dict, fragment: str):
+    """(registers, static shared bytes) of the one entry whose mangled
+    name holds ``fragment``, e.g. ``fd_scores_kernelILi4ELb1E`` for
+    ``fd_scores_kernel<4, true>``; (None, None) when the report has no
+    such entry (a library loaded from an earlier build without one)."""
+    hits = [v for k, v in usage.items() if fragment in k]
+    if len(hits) != 1:
+        log(f"[build] no single ptxas entry for {fragment}: {len(hits)}")
+        return None, None
+    return hits[0]
+
+
+def tile_docs(T: int) -> int:
+    """Docs per block of a staged kernel at T term groups (stage.cuh)."""
+    return 128 if T <= 4 else (64 if T <= 8 else 32)
+
+
+def k1_smem(T: int) -> int:
+    """K1's dynamic shared memory per block: the [T·16, TD] tile of the
+    staged instantiations (T <= 16), none for the direct-load ones."""
+    return T * P * tile_docs(T) * 4 if T <= 16 else 0
+
+
+def k2_smem(T: int, tail: bool) -> int:
+    """K2's dynamic shared memory per block: the tile, plus one group's
+    tail rows [16, TD] with a tail."""
+    return (T + int(tail)) * P * tile_docs(T) * 4
+
+
+def load_parent(root: Path):
+    """The kernel wrappers (K1, K2) of another checkout of the port, such
+    as the parent commit's, imported under the package name
+    ``parent_port`` so that they sit beside this checkout's."""
+    import importlib
+    import importlib.util
+    pkg = root / "open_source_search_engine_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "parent_port", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_port"] = mod
+    spec.loader.exec_module(mod)
+    return (importlib.import_module("parent_port.query.min_scores_kernel"),
+            importlib.import_module("parent_port.query.fd_scores_kernel"))
 
 
 def as_raw(res):
@@ -139,26 +226,29 @@ def as_raw(res):
 
 
 def k1_bound(cube, counts):
-    """Least time (ms) the card could take for K1 on these inputs, and
-    what bounds it. Bytes: the cube, freq_weight and counts read once,
-    min_score written once. Operations (fp32, counted for what these
-    inputs need): 6 per valid slot of a counted term (weights, squared
-    score), 330 per present counted term-doc (the top-10 knock-out over
-    32 candidates and its sum), and 15 per valid position pair of a
-    counted term pair within MAX_PAIR_SPAN (distance rules, product,
-    one division, max)."""
+    """Least time (ms) the card could take for K1 on these inputs (one
+    query's [T, P, D] cube or a wave's [B, T, P, D]), and what bounds it.
+    Bytes: the cube rows of the counted groups (the body reads no slot of
+    a group outside the min: a padding group, a negative), freq_weight
+    and counts read once, min_score written once. Operations (fp32, counted for what these inputs need): 6 per
+    valid slot of a counted term (weights, squared score), 330 per
+    present counted term-doc (the top-10 knock-out over 32 candidates and
+    its sum), and 15 per valid position pair of a counted term pair
+    within MAX_PAIR_SPAN (distance rules, product, one division, max)."""
     import torch
     from open_source_search_engine_tpu_torch.query.min_scores_kernel import \
         MAX_PAIR_SPAN
-    T, _, D = cube.shape
-    nbytes = cube.numel() * 4 + T * 4 + T + D * 4
-    nv = (cube != 0).sum(dim=1).to(torch.float64)          # [T, D]
-    live = counts[:, None] & (nv > 0)
+    if cube.dim() == 3:
+        cube, counts = cube[None], counts[None]
+    B, T, _, D = cube.shape
+    nbytes = int(counts.sum()) * P * D * 4 + B * (T * 4 + T + D * 4)
+    nv = (cube != 0).sum(dim=2).to(torch.float64)          # [B, T, D]
+    live = counts[:, :, None] & (nv > 0)
     nv = torch.where(live, nv, torch.zeros_like(nv))
     pair_evals = 0.0
     for i in range(T):
         for j in range(i + 1, min(i + 1 + MAX_PAIR_SPAN, T)):
-            pair_evals += float((nv[i] * nv[j]).sum())
+            pair_evals += float((nv[:, i] * nv[:, j]).sum())
     ops = 6 * float(nv.sum()) + 330 * float(live.sum()) + 15 * pair_evals
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_FP32_S * 1e3
@@ -193,6 +283,17 @@ def k2_bound(g_quarter, g_qsyn, cube, dead, counts, tail):
                                  else "operations"), nbytes, ops
 
 
+def k1_plain(msk, cube, pvalid, freq_weight, counts):
+    """K1's plain version on one query's [T, P, D] cube or, query by
+    query, on a wave's [B, T, P, D]."""
+    import torch
+    if cube.dim() == 3:
+        return msk.min_scores_plain(cube, pvalid, freq_weight, counts)
+    return torch.stack([msk.min_scores_plain(cube[b], pvalid[b],
+                                             freq_weight[b], counts[b])
+                        for b in range(cube.shape[0])])
+
+
 def to_card(arrays):
     """numpy arrays (or None) → the same as tensors on the card."""
     import numpy as np
@@ -224,6 +325,13 @@ def check_golden(q, total, results, expected):
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another checkout of the port (e.g. the parent "
+                    "commit): its K1 and K2 are built too, and timed beside "
+                    "this checkout's on every timed input")
+    opts = ap.parse_args()
     t_start = time.perf_counter()
 
     # ---- 1. probe ----
@@ -237,7 +345,7 @@ def main() -> int:
     from open_source_search_engine_tpu_torch.build import docproc
     from open_source_search_engine_tpu_torch.corpus import (
         assert_tie_run_parity, fd_inputs, gen_docs, long_queries,
-        make_queries, rand_cube)
+        make_queries, rand_cube, wide_queries)
     from open_source_search_engine_tpu_torch.index.carry import \
         collection_from_arrays
     from open_source_search_engine_tpu_torch.index.collection import \
@@ -266,70 +374,119 @@ def main() -> int:
 
     # ---- 2. build: one nvcc per source, all started together ----
     from concurrent.futures import ThreadPoolExecutor
+    par_msk, par_fdk = load_parent(opts.parent) if opts.parent else (None,
+                                                                     None)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        builds = list(ex.map(lambda m: m.build(), (msk, fdk)))
+    with ThreadPoolExecutor(4) as ex:
+        builds = list(ex.map(lambda m: m.build(),
+                             [m for m in (msk, fdk, par_msk, par_fdk) if m]))
+    builds = builds[:2]   # the report is this checkout's
     log(f"[build] {', '.join(so.name for so, _ in builds)} in "
         f"{time.perf_counter() - t0:.1f} s")
+    usage: dict = {}
     for _, report in builds:
+        usage.update(ptxas_usage(report))
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or \
-                    "Compiling entry" in line:
+            if "spill" in line and " 0 bytes spill" not in line:
                 log(f"[build]   {line.strip()}")
+    for entry, (regs, smem) in sorted(usage.items()):
+        log(f"[build]   {entry[:72]}: {regs} registers, {smem} B static "
+            "shared memory")
+    log(f"[build] dynamic shared memory per block: K1 by T "
+        f"{ {T: k1_smem(T) for T in (4, 8, 16, 32)} }, K2 by (T, tail) "
+        f"{ {(T, t): k2_smem(T, t) for T in (4, 8) for t in (0, 1)} }")
+
+    def parent_k1(cube, fw, counts):
+        """The parent's K1 on the same inputs (a wave query by query: its
+        kernel has no batch axis), checked bitwise against this
+        checkout's, and its time; None without --parent."""
+        if par_msk is None:
+            return None
+        if cube.dim() == 3:
+            def run():
+                return par_msk.min_scores_fused(cube, fw, counts)
+        else:
+            def run():
+                return torch.stack([par_msk.min_scores_fused(
+                    cube[b], fw[b], counts[b]) for b in range(cube.shape[0])])
+        assert torch.equal(run(), msk.min_scores_fused(cube, fw, counts))
+        return cuda_ms(run)
+
+    def parent_k2(args):
+        """The parent's K2 on the same inputs, checked bitwise against
+        this checkout's, and its time; None without --parent."""
+        if par_fdk is None:
+            return None
+        a, b = par_fdk.fd_scores(*args), fdk.fd_scores(*args)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        return cuda_ms(lambda: par_fdk.fd_scores(*args))
 
     # ---- 3. K1 against its plain version on the card ----
+    # the shapes of earlier slices draw from `rng` in their old order, so
+    # their random cubes (and times) stay comparable; the ragged D = 1001
+    # and batched shapes draw from `rng2`
     max_err = 0.0
     rng = np.random.default_rng(0)
-    shapes = [(T, D) for T in (4, 8) for D in (1000, 1024, 65536)] \
-        + [(T, 1000) for T in (16, 32, 64, 128)]
+    rng2 = np.random.default_rng(3)
+    shapes = [(1, T, D) for T in (4, 8) for D in (1000, 1024, 65536)] \
+        + [(1, T, 1000) for T in (16, 32, 64, 128)] + [(1, "zero", 1024)] \
+        + [(1, T, 1001) for T in (4, 8)] \
+        + [(3, T, 1001) for T in (4, 8, 16, 32)]
     random_times = []
-    for T, D in shapes + [("zero", 1024)]:
+    for B, T, D in shapes:
+        r = rng2 if D == 1001 else rng
         if T == "zero":
             T = 4
             cube_np = np.zeros((T, P, D), np.uint32)
         else:
-            cube_np = rand_cube(rng, T, D)
-        fw = torch.tensor((rng.random(T) * 0.5 + 0.2).astype(np.float32),
-                          device=dev)
-        counts = torch.tensor(rng.random(T) < 0.7, device=dev)
-        counts[0] = True
+            cube_np = np.stack([rand_cube(r, T, D) for _ in range(B)])
+        lead = (B,) if cube_np.ndim == 4 else ()
+        fw = torch.tensor((r.random(lead + (T,)) * 0.5 + 0.2).astype(
+            np.float32), device=dev)
+        counts = torch.tensor(r.random(lead + (T,)) < 0.7, device=dev)
+        counts[..., 0] = True
+        if B == 1:
+            cube_np, fw, counts = cube_np.reshape(T, P, D), fw.reshape(T), \
+                counts.reshape(T)
         cube = torch.from_numpy(cube_np.view(np.int32)).to(dev)
         got = msk.min_scores_fused(cube, fw, counts)
-        want = msk.min_scores_plain(cube, cube != 0, fw, counts)
+        want = k1_plain(msk, cube, cube != 0, fw, counts)
         torch.cuda.synchronize()
-        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, want), (B, T, D,
+                                        float((got - want).abs().max()))
         err = float((got - want).abs().max())
         max_err = max(max_err, err)
-        line = (f"[k1] T={T} D={D} max_abs_err={err:.3g} "
-                f"bitwise={bool(torch.equal(got, want))}")
+        line = f"[k1] B={B} T={T} D={D} max_abs_err={err:.3g} bitwise=True"
         if D == 65536:
             ms = cuda_ms(lambda: msk.min_scores_fused(cube, fw, counts))
             pms = cuda_ms(lambda: msk.min_scores_plain(
                 cube, cube != 0, fw, counts), reps=5, warmup=1)
             bms, by, nb, ops = k1_bound(cube, counts)
-            random_times.append(dict(T=T, D=D, ms=ms, plain_ms=pms,
-                                     bound_ms=bms, bound_by=by))
-            line += (f" ms={ms:.4f} plain_ms={pms:.3f} bound_ms={bms:.4f}"
-                     f" ({by}; {nb} B, {ops:.3g} ops)")
+            par = parent_k1(cube, fw, counts)
+            random_times.append(dict(T=T, D=D, ms=ms, parent_ms=par,
+                                     plain_ms=pms, bound_ms=bms,
+                                     bound_by=by))
+            line += (f" ms={ms:.4f} parent_ms={par} plain_ms={pms:.3f} "
+                     f"bound_ms={bms:.4f} ({by}; {nb} B, {ops:.3g} ops)")
         log(line)
 
     # ---- 3b. K2 against its plain version on the card ----
     k2_err = 0.0
-    for T in (4, 8):
-        for D in (1024, 131072):
-            for tail in (False, True):
-                args = to_card(fd_inputs(rng, T, D, tail))
-                ms_k, pres_k = fdk.fd_scores(*args)
-                ms_p, pres_p = fdk.fd_scores_plain(*args)
-                torch.cuda.synchronize()
-                torch.testing.assert_close(ms_k, ms_p, **TOL)
-                assert torch.equal(pres_k, pres_p), (T, D, tail)
-                err = float((ms_k - ms_p).abs().max())
-                k2_err = max(k2_err, err)
-                log(f"[k2] T={T} D={D} B=4 tail={tail} max_abs_err="
-                    f"{err:.3g} presence_equal=True bitwise="
-                    f"{bool(torch.equal(ms_k, ms_p))}")
-                del args, ms_k, pres_k, ms_p, pres_p
+    k2_shapes = [(T, D, rng) for T in (4, 8) for D in (1024, 131072)] \
+        + [(T, 1001, rng2) for T in (4, 8)]
+    for T, D, r in k2_shapes:
+        for tail in (False, True):
+            args = to_card(fd_inputs(r, T, D, tail))
+            ms_k, pres_k = fdk.fd_scores(*args)
+            ms_p, pres_p = fdk.fd_scores_plain(*args)
+            torch.cuda.synchronize()
+            err = float((ms_k - ms_p).abs().max())
+            k2_err = max(k2_err, err)
+            assert torch.equal(ms_k, ms_p), (T, D, tail, err)
+            assert torch.equal(pres_k, pres_p), (T, D, tail)
+            log(f"[k2] T={T} D={D} B=4 tail={tail} max_abs_err={err:.3g} "
+                "presence_equal=True bitwise=True")
+            del args, ms_k, pres_k, ms_p, pres_p
 
     # ---- 4. the flat path at full size ----
     work = ROOT / "build" / "chip_smoke"
@@ -406,15 +563,42 @@ def main() -> int:
     fw, counts = t[4], t[8]
     got = msk.min_scores_fused(cube, fw, counts)
     want = msk.min_scores_plain(cube, cube != 0, fw, counts)
-    torch.testing.assert_close(got, want, **TOL)
-    max_err = max(max_err, float((got - want).abs().max()))
+    assert torch.equal(got, want), float((got - want).abs().max())
     k_ms = cuda_ms(lambda: msk.min_scores_fused(cube, fw, counts))
     p_ms = cuda_ms(lambda: msk.min_scores_plain(cube, cube != 0, fw,
                                                 counts), reps=5, warmup=1)
     b_ms, b_by, nb, ops = k1_bound(cube, counts)
+    k_par = parent_k1(cube, fw, counts)
     log(f"[k1] main-path cube {tuple(cube.shape)} ({big_q!r}): "
-        f"ms={k_ms:.4f} plain_ms={p_ms:.3f} bound_ms={b_ms:.5f} ({b_by};"
-        f" {nb} B, {ops:.3g} ops) bitwise={bool(torch.equal(got, want))}")
+        f"ms={k_ms:.4f} parent_ms={k_par} plain_ms={p_ms:.3f} bound_ms="
+        f"{b_ms:.5f} ({b_by}; {nb} B, {ops:.3g} ops) "
+        f"bitwise={bool(torch.equal(got, want))}")
+
+    # the T = 8 and T = 16 buckets on real cubes: of eight queries of 5-8
+    # words (of the 512 commonest) and of 9-16 words (of the 64
+    # commonest), the one with the most candidates, first pass
+    wide_k1 = []
+    for lo, hi, top, seed in ((5, 8, 512, 77), (9, 16, 64, 78)):
+        wq = max(wide_queries(8, seed, lo, hi, top), key=lambda q: len(
+            packer.prepare_query(coll, compile_query(q)).cand))
+        wpq = packer.pack_pass(packer.prepare_query(coll, compile_query(wq)),
+                               max_docs=1 << 16)
+        tw = to_device(wpq, dev)
+        wcube, _ = scatter_cube(tw[0], tw[1], tw[2], tw[3],
+                                len(wpq.siterank), P)
+        wfw, wcounts = tw[4], tw[8]
+        assert torch.equal(msk.min_scores_fused(wcube, wfw, wcounts),
+                           msk.min_scores_plain(wcube, wcube != 0, wfw,
+                                                wcounts)), wq
+        w = dict(where="flat", shape=list(wcube.shape), query=wq,
+                 ms=cuda_ms(lambda: msk.min_scores_fused(wcube, wfw,
+                                                         wcounts)),
+                 parent_ms=parent_k1(wcube, wfw, wcounts))
+        w["bound_ms"], w["bound_by"] = k1_bound(wcube, wcounts)[:2]
+        wide_k1.append(w)
+        log(f"[k1] flat cube {tuple(wcube.shape)} ({wq!r}): ms={w['ms']:.4f}"
+            f" parent_ms={w['parent_ms']} bound_ms={w['bound_ms']:.5f} "
+            f"({w['bound_by']}) bitwise=True")
 
     # CUDA vs CPU over the same records
     t0 = time.perf_counter()
@@ -461,42 +645,62 @@ def main() -> int:
         f"{di.resident_bytes() / 2**30:.3f} GiB, peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
-    # the batch, with every counter set to 0 just before; the largest FD
-    # wave's inputs and the largest cube K1 scores on the route (F1 phase
-    # 2, F2) are kept for checking and timing the kernels below. The
-    # wrappers pass the arguments on untouched; nothing on the route
-    # writes to them after the call.
-    big_fd: list = []
-    big_k1: list = []
-    fd_scores = fdk.fd_scores
-    ms_fused = scorer.min_scores_fused
+    def wave_words(a):  # words an FD wave reads: quarter rows + tail
+        return a[0].numel() * (1 if a[-1] is None else 2)
 
-    def wave_words(args):  # words the wave reads: quarter rows + tail
-        return args[0].numel() * (1 if args[-1] is None else 2)
+    def route_batch(qs):
+        """engine.search_device_batch over qs with the route's kernel
+        calls and wave runners wrapped. Returns the pages, the batch's
+        seconds, per T the largest FD wave's K2 arguments and the largest
+        batched K1 call (an F1 wave's phase 2, [B, T, 16, κ2]), and the
+        F1 wave calls and F2 queries. The wrappers pass the arguments on
+        untouched; nothing on the route writes to them after the call."""
+        fd, k1 = {}, {}
+        waves = {"f1_calls": 0, "f2_queries": 0}
+        fd_scores, ms_fused = fdk.fd_scores, scorer.min_scores_fused
+        run_f1, run_f2 = di._run_batch, di._run_batch_f2
 
-    def keep_largest(*args):
-        if not big_fd or wave_words(args) > wave_words(big_fd[0]):
-            big_fd[:] = [args]
-        return fd_scores(*args)
+        def keep_fd(*a):
+            T = a[0].shape[1] // 4
+            if T not in fd or wave_words(a) > wave_words(fd[T]):
+                fd[T] = a
+            return fd_scores(*a)
 
-    def keep_largest_cube(cube, freq_weight, counts, pvalid=None):
-        if not big_k1 or cube.numel() > big_k1[0][0].numel():
-            big_k1[:] = [(cube, freq_weight, counts, pvalid)]
-        return ms_fused(cube, freq_weight, counts, pvalid)
-    fdk.fd_scores = keep_largest
-    scorer.min_scores_fused = keep_largest_cube
+        def keep_k1(cube, freq_weight, counts, pvalid=None):
+            T = cube.shape[-3]
+            if cube.dim() == 4 and (T not in k1
+                                    or cube.numel() > k1[T][0].numel()):
+                k1[T] = (cube, freq_weight, counts)
+            return ms_fused(cube, freq_weight, counts, pvalid)
+
+        def count_f1(plans, *a):
+            waves["f1_calls"] += 1
+            return run_f1(plans, *a)
+
+        def count_f2(plans, *a):
+            waves["f2_queries"] += len(plans)
+            return run_f2(plans, *a)
+        fdk.fd_scores, scorer.min_scores_fused = keep_fd, keep_k1
+        di._run_batch, di._run_batch_f2 = count_f1, count_f2
+        try:
+            t0 = time.perf_counter()
+            pages = engine.search_device_batch(coll, qs, **SC)
+            secs = time.perf_counter() - t0
+        finally:
+            fdk.fd_scores, scorer.min_scores_fused = fd_scores, ms_fused
+            del di._run_batch, di._run_batch_f2
+        return pages, secs, fd, k1, waves
+
+    def reset_counts():
+        msk.launches = msk.plain_calls = 0
+        fdk.launches_tail = fdk.launches_notail = fdk.plain_calls = 0
+
+    # the batch, with every counter set to 0 just before
     routes0, esc0 = dict(di.route_counts), di.escalations
     trace.reset()
     torch.cuda.reset_peak_memory_stats()
-    msk.launches = msk.plain_calls = 0
-    fdk.launches_tail = fdk.launches_notail = fdk.plain_calls = 0
-    try:
-        t0 = time.perf_counter()
-        batch = engine.search_device_batch(coll, queries, **SC)
-        t_batch = time.perf_counter() - t0
-    finally:
-        fdk.fd_scores = fd_scores
-        scorer.min_scores_fused = ms_fused
+    reset_counts()
+    batch, t_batch, fd_waves, k1_waves, waves = route_batch(queries)
     k1_dev = msk.launches
     k2_launches = fdk.launches_tail + fdk.launches_notail
     k2_split = (fdk.launches_tail, fdk.launches_notail)
@@ -505,7 +709,9 @@ def main() -> int:
     escalations = di.escalations - esc0
     log(f"[device] batch of {len(queries)}: {t_batch * 1e3:.1f} ms "
         f"({len(queries) / t_batch:.2f} qps); routes {routes}, escalations "
-        f"{escalations}; K1 launches {k1_dev}, K2 launches {k2_launches} "
+        f"{escalations}; K1 launches {k1_dev} (F1 wave calls "
+        f"{waves['f1_calls']}, F2 queries {waves['f2_queries']}), K2 "
+        f"launches {k2_launches} "
         f"(tail {k2_split[0]}, no tail {k2_split[1]}), plain calls "
         f"{plain_dev}; peak allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -515,8 +721,10 @@ def main() -> int:
             f"{secs / t_batch:.1%} of the batch")
     assert sum(routes.values()) == len(queries), routes
     assert routes["fd"] > 0 and k2_launches > 0, (routes, k2_launches)
-    assert routes["f1"] + routes["f2"] > 0 and k1_dev > 0 and big_k1, \
+    assert routes["f1"] + routes["f2"] > 0 and k1_dev > 0 and k1_waves, \
         (routes, k1_dev)
+    # one K1 launch per F1 wave call (the whole wave) and per F2 query
+    assert k1_dev == waves["f1_calls"] + waves["f2_queries"], (k1_dev, waves)
     assert plain_dev == 0, plain_dev
     for q, res in zip(queries, batch):
         assert_tie_run_parity(as_raw(res), as_raw(cuda_res[q]), q)
@@ -548,16 +756,16 @@ def main() -> int:
         engine.search_device_batch(coll, queries, **SC)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    dev_idle = report_profile(f"device batch of {len(queries)}", prof,
+    prof_dev = report_profile(f"device batch of {len(queries)}", prof,
                               prof_wall)
+    dev_idle, dev_busy_ms, prof_k = prof_dev or (None, None, {})
 
     # K2 on the largest FD wave of the batch: against plain, timed
-    args = big_fd[0]
+    args = max(fd_waves.values(), key=wave_words)
     ms_k, pres_k = fdk.fd_scores(*args)
     ms_p, pres_p = fdk.fd_scores_plain(*args)
-    torch.testing.assert_close(ms_k, ms_p, **TOL)
-    assert torch.equal(pres_k, pres_p)
     k2_err = max(k2_err, float((ms_k - ms_p).abs().max()))
+    assert torch.equal(ms_k, ms_p) and torch.equal(pres_k, pres_p), k2_err
     k2_ms = cuda_ms(lambda: fdk.fd_scores(*args))
     k2_plain_ms = cuda_ms(lambda: fdk.fd_scores_plain(*args), reps=3,
                           warmup=1)
@@ -565,30 +773,80 @@ def main() -> int:
                                              args[3], args[5], args[6])
     k2_shape = dict(B=args[0].shape[0], T=args[0].shape[1] // 4,
                     D=args[3].shape[0], tail=args[6] is not None)
-    log(f"[k2] main-path wave {k2_shape}: ms={k2_ms:.4f} plain_ms="
-        f"{k2_plain_ms:.3f} bound_ms={k2_b_ms:.5f} ({k2_by}; {k2_nb} B, "
-        f"{k2_ops:.3g} ops) bitwise={bool(torch.equal(ms_k, ms_p))}")
+    k2_par = parent_k2(args)
+    log(f"[k2] main-path wave {k2_shape}: ms={k2_ms:.4f} parent_ms="
+        f"{k2_par} plain_ms={k2_plain_ms:.3f} bound_ms={k2_b_ms:.5f} "
+        f"({k2_by}; {k2_nb} B, {k2_ops:.3g} ops) "
+        f"bitwise={bool(torch.equal(ms_k, ms_p))}")
+    # what sets K2's pace, two diagnostics on the same wave: no group
+    # counted (the copies, gates and presence bits only: the body returns
+    # at once), and the wave without its tail (half the shared memory)
+    no_counts = torch.zeros_like(args[5])
+    k2_stage_ms = cuda_ms(lambda: fdk.fd_scores(*args[:5], no_counts,
+                                                args[6]))
+    k2_notail_ms = (cuda_ms(lambda: fdk.fd_scores(*args[:6], None))
+                    if args[6] is not None else None)
+    log(f"[k2] main-path wave diagnostics: staging, gates and presence "
+        f"only {k2_stage_ms:.4f} ms; without its tail {k2_notail_ms} ms")
 
-    # K1 on the largest cube the device route gave it: against plain,
-    # timed
-    k1d_cube, k1d_fw, k1d_counts, k1d_pv = big_k1[0]
-    if k1d_pv is None:
-        k1d_pv = k1d_cube != 0
+    # K1 on the largest batched call of the route (an F1 wave's phase 2):
+    # against plain, timed as one launch and, for comparison, as one
+    # launch per query of the wave
+    k1d_cube, k1d_fw, k1d_counts = max(k1_waves.values(),
+                                       key=lambda a: a[0].numel())
+    k1d_pv = k1d_cube != 0
     got = msk.min_scores_fused(k1d_cube, k1d_fw, k1d_counts)
-    want = msk.min_scores_plain(k1d_cube, k1d_pv, k1d_fw, k1d_counts)
-    torch.testing.assert_close(got, want, **TOL)
-    max_err = max(max_err, float((got - want).abs().max()))
+    want = k1_plain(msk, k1d_cube, k1d_pv, k1d_fw, k1d_counts)
+    assert torch.equal(got, want), float((got - want).abs().max())
     k1d_ms = cuda_ms(lambda: msk.min_scores_fused(k1d_cube, k1d_fw,
                                                   k1d_counts))
-    k1d_plain_ms = cuda_ms(lambda: msk.min_scores_plain(
-        k1d_cube, k1d_pv, k1d_fw, k1d_counts), reps=5, warmup=1)
+
+    def k1_per_query():
+        for b in range(k1d_cube.shape[0]):
+            msk.min_scores_fused(k1d_cube[b], k1d_fw[b], k1d_counts[b])
+    k1d_perq_ms = cuda_ms(k1_per_query)
+    k1d_plain_ms = cuda_ms(lambda: k1_plain(
+        msk, k1d_cube, k1d_pv, k1d_fw, k1d_counts), reps=5, warmup=1)
     k1d_b_ms, k1d_by, nb, ops = k1_bound(k1d_cube, k1d_counts)
     k1d_shape = list(k1d_cube.shape)
-    log(f"[k1] device-route cube {tuple(k1d_shape)}: ms={k1d_ms:.4f} "
+    k1d_par = parent_k1(k1d_cube, k1d_fw, k1d_counts)
+    log(f"[k1] largest F1 wave {tuple(k1d_shape)}: ms={k1d_ms:.4f} (one "
+        f"launch per query: {k1d_perq_ms:.4f}) parent_ms={k1d_par} "
         f"plain_ms={k1d_plain_ms:.3f} bound_ms={k1d_b_ms:.5f} ({k1d_by}; "
-        f"{nb} B, {ops:.3g} ops) bitwise={bool(torch.equal(got, want))}")
-    del args, big_fd, ms_k, pres_k, ms_p, pres_p, big_k1, k1d_cube, \
-        k1d_fw, k1d_counts, k1d_pv, got, want, di
+        f"{nb} B, {ops:.3g} ops) bitwise=True")
+    del args, fd_waves, ms_k, pres_k, ms_p, pres_p, k1_waves, k1d_cube, \
+        k1d_fw, k1d_counts, k1d_pv, got, want
+
+    # the T = 8 bucket on the route: 16 queries of 5-8 words (8 of the 64
+    # commonest words and 8 of any), each page equal to the flat path's;
+    # over this index all 16 go direct, so K2 is timed on the batch's
+    # largest T = 8 wave (K1 at T = 8 is timed on the flat path's cube)
+    wide = wide_queries(8, 79, 5, 8, 64) + wide_queries(8, 80, 5, 8)
+    routes0 = dict(di.route_counts)
+    reset_counts()
+    wpages, t_wide, wfd, wk1, wwaves = route_batch(wide)
+    wroutes = {k: di.route_counts[k] - routes0[k] for k in routes0}
+    wl = (msk.launches, fdk.launches_tail + fdk.launches_notail)
+    assert wl[0] == wwaves["f1_calls"] + wwaves["f2_queries"], (wl, wwaves)
+    assert msk.plain_calls + fdk.plain_calls == 0
+    for q, res in zip(wide, wpages):
+        assert_tie_run_parity(as_raw(res),
+                              as_raw(engine.search(coll, q, **SC)), q)
+    log(f"[device] batch of {len(wide)} 5-8 word queries: "
+        f"{t_wide * 1e3:.1f} ms; routes {wroutes}; K1 launches {wl[0]} "
+        f"({wwaves}), K2 launches {wl[1]}; each page equals the flat "
+        "path's")
+    a = wfd[8]
+    got, want = fdk.fd_scores(*a), fdk.fd_scores_plain(*a)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    wide_k2 = dict(B=a[0].shape[0], T=8, D=a[3].shape[0],
+                   tail=a[6] is not None,
+                   ms=cuda_ms(lambda: fdk.fd_scores(*a)),
+                   parent_ms=parent_k2(a))
+    wide_k2["bound_ms"], wide_k2["bound_by"] = k2_bound(
+        a[0], a[1], a[2], a[3], a[5], a[6])[:2]
+    log(f"[k2] largest T = 8 FD wave {wide_k2}: bitwise=True")
+    del wfd, wk1, a, got, want, di
     coll._device_index = None
 
     # the route corpus: F1, FD and F2 each serve a query, on the card as
@@ -647,35 +905,63 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
 
     # ---- 7. report ----
+    # registers (ptxas) and shared memory (static + dynamic) of the
+    # instantiations the main path's timed calls run
+    k1_T = k1d_shape[1]
+    k1_regs, k1_static = usage_of(
+        usage, f"min_scores_stagedILi{k1_T}E" if k1_T in (4, 8, 16)
+        else f"min_scores_directILi{k1_T if k1_T in (32, 64) else 0}E")
+    k2_regs, k2_static = usage_of(
+        usage, f"fd_scores_kernelILi{k2_shape['T']}ELb"
+               f"{int(k2_shape['tail'])}E")
     kernels = {"kernels": [{
         "name": "min_scores", "route": "cuda",
         "source": "open_source_search_engine_tpu_torch/csrc/min_scores.cu",
         "replaces": "open_source_search_engine_tpu/query/pallas_scores.py"
                     ":173",
         "launches": k1_dev, "max_abs_err": max_err,
-        "ms": k1d_ms, "plain_ms": k1d_plain_ms, "bound_ms": k1d_b_ms,
+        "ms": k1d_ms, "parent_ms": k1d_par, "plain_ms": k1d_plain_ms,
+        "bound_ms": k1d_b_ms,
         "bound_by": k1d_by, "library_ms": None, "parity": "pass",
-        "shape": k1d_shape,
+        "shape": k1d_shape, "regs": k1_regs,
+        "smem_bytes": (None if k1_static is None
+                       else k1_static + k1_smem(k1_T)),
+        "f1_wave_calls": waves["f1_calls"],
+        "f2_queries": waves["f2_queries"],
+        "ms_one_launch_per_query": k1d_perq_ms,
+        "device_ms_in_profiled_batch": prof_k.get("min_scores", (None,))[0],
         "launches_flat_path": flat_launches, "ms_flat_path": k_ms,
+        "parent_ms_flat_path": k_par,
         "plain_ms_flat_path": p_ms, "bound_ms_flat_path": b_ms,
         "bound_by_flat_path": b_by, "shape_flat_path": list(cube.shape),
-        "random_cubes": random_times,
+        "random_cubes": random_times, "wide_cubes": wide_k1,
     }, {
         "name": "fd_scores", "route": "cuda",
         "source": "open_source_search_engine_tpu_torch/csrc/fd_scores.cu",
         "replaces": "open_source_search_engine_tpu/query/pallas_scores.py"
                     ":226",
         "launches": k2_launches, "launches_tail_notail": list(k2_split),
-        "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+        "max_abs_err": k2_err, "ms": k2_ms, "parent_ms": k2_par,
+        "plain_ms": k2_plain_ms,
         "bound_ms": k2_b_ms, "bound_by": k2_by, "library_ms": None,
-        "parity": "pass", "shape": k2_shape,
+        "parity": "pass", "shape": k2_shape, "regs": k2_regs,
+        "smem_bytes": (None if k2_static is None else k2_static
+                       + k2_smem(k2_shape["T"], k2_shape["tail"])),
+        "device_ms_in_profiled_batch": prof_k.get("fd_scores", (None,))[0],
+        "ms_staging_only": k2_stage_ms,
+        "ms_same_wave_without_tail": k2_notail_ms,
+        "wide_wave_t8": wide_k2,
     }], "device_route": {
         "build_s": t_build, "batch_ms": t_batch * 1e3,
         "batch_qps": len(queries) / t_batch,
         "warm_batch_ms": t_warm * 1e3, "warm_batch_qps": len(queries) / t_warm,
         "single_p50_ms": statistics.median(lat_dev),
         "single_max_ms": max(lat_dev), "routes": routes,
-        "escalations": escalations, "device_idle": dev_idle}}
+        "escalations": escalations, "wide_batch_routes": wroutes,
+        "device_idle": dev_idle,
+        "device_busy_ms": dev_busy_ms,
+        "k2_share_of_busy": (prof_k["fd_scores"][0] / dev_busy_ms
+                             if dev_busy_ms else None)}}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(smi)

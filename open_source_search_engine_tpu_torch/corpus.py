@@ -2,7 +2,8 @@
 ``chip_smoke.py``: the benchmark corpus and query stream (the same
 generators as the repository's ``bench.py``: a deterministic
 zipf-vocabulary HTML corpus over 97 sites, and unique 1-3 term zipf
-queries), the route-exercise corpus, random inputs for the scoring
+queries), wider queries of the same terms for the larger term-group
+buckets, the route-exercise corpus, random inputs for the scoring
 kernels, and the tie-run comparison of two result lists."""
 
 from __future__ import annotations
@@ -51,6 +52,30 @@ def make_queries(n: int, seed: int) -> list[str]:
     while len(out) < n:
         n_terms = int(rng.integers(1, 4))
         terms = rng.zipf(1.3, size=n_terms) % VOCAB
+        q = " ".join(f"word{t}" for t in terms)
+        if q not in seen:
+            seen.add(q)
+            out.append(q)
+    return out
+
+
+def wide_queries(n: int, seed: int, lo: int, hi: int,
+                 top: int = VOCAB) -> list[str]:
+    """``n`` UNIQUE queries of ``lo`` to ``hi`` distinct zipf terms, each
+    term drawn as :func:`make_queries` draws its terms, and redrawn until
+    it is one of the ``top`` commonest words: 5-8 terms fill the T = 8
+    bucket and 9-16 the T = 16 one, which the 1-3 term stream never
+    reaches."""
+    rng = np.random.default_rng(seed)
+    seen: set[str] = set()
+    out: list[str] = []
+    while len(out) < n:
+        n_terms = int(rng.integers(lo, hi + 1))
+        terms: list[int] = []
+        while len(terms) < n_terms:
+            t = int(rng.zipf(1.3)) % VOCAB
+            if 0 < t < top and t not in terms:
+                terms.append(t)
         q = " ".join(f"word{t}" for t in terms)
         if q not in seen:
             seen.add(q)

@@ -20,7 +20,12 @@
 //   * min over singles and pairs; 1.0 when no counted term is present.
 // Validity is payload != 0 (the build-side invariant).
 //
-// Registers, not the cube, are the scarce resource (T*P payloads per
+// The staged kernels (K1 at T in {4, 8, 16}, K2) hand it a loader that
+// reads their shared-memory tile, tile[(t * P + p) * TD + lane]
+// (stage.cuh), so the re-reads below cost a shared-memory load each, not
+// a global one; K1's wide direct-load instantiations read the cube in
+// global memory.
+// Registers, not the slots, are the scarce resource (T*P payloads per
 // doc), so the singles decode one term's 16 slots at a time, and each pair
 // holds only term i's 16 decoded slots in registers while it re-reads
 // term j's slots through the loader and skips empty ones. The weight
@@ -64,7 +69,8 @@ struct Tables {
   float denw[kDenValues];
 };
 
-// Every thread of the block calls this before any early return.
+// Every thread of the block calls this before any early return; the block
+// has at least 32 threads.
 __device__ __forceinline__ void load_tables(const float* tables, Tables* s) {
   if (threadIdx.x < kHgValues) s->hgw[threadIdx.x] = tables[threadIdx.x];
   if (threadIdx.x < kDenValues)

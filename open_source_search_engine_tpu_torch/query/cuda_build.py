@@ -48,15 +48,17 @@ def _nvcc() -> str:
 def build(name: str) -> tuple[Path, str]:
     """Compile ``csrc/<name>.cu`` into a shared library unless one built
     from the same sources and flags exists. Returns its path and the
-    compiler's report (``-Xptxas=-v``: registers, spills)."""
+    compiler's report (``-Xptxas=-v``: registers, shared memory, spills),
+    kept beside the library for later calls."""
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for dep in sorted(CSRC.glob("*.cuh")):
         h.update(dep.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     so = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    report = so.with_name(f"{so.name}.ptxas.txt")
     if so.exists():
-        return so, ""
+        return so, report.read_text() if report.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
@@ -64,6 +66,7 @@ def build(name: str) -> tuple[Path, str]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):"
                            f"\n{proc.stderr}{proc.stdout}")
+    report.write_text(proc.stderr + proc.stdout)
     os.replace(tmp, so)
     return so, proc.stderr + proc.stdout
 

@@ -1247,13 +1247,13 @@ class DeviceIndex:
     def _scatter_postings(self, plans, T: int, n_out: int):
         """Posting-granular scatter of the plans' p-rows (bigrams, delta
         postings, small terms) into a flat zero int32 cube of
-        ``len(plans)·T·P·D`` words plus one dropped sentinel word, and
-        its validity. Base postings of dead docs are dropped."""
+        ``len(plans)·T·P·D`` words plus one dropped sentinel word. Its
+        validity is payload ≠ 0 (every real posting's payload is
+        nonzero). Base postings of dead docs are dropped."""
         P, D = self.P, self.D_cap
         N = self.d_payload.shape[0]
         dev = self.device
         cube = torch.zeros(n_out + 1, dtype=torch.int32, device=dev)
-        pv = torch.zeros(n_out + 1, dtype=torch.bool, device=dev)
         cols = {k: [] for k in ("p_start", "p_len", "p_group", "p_base",
                                 "p_quota", "p_syn", "p_isbase")}
         qb = []
@@ -1264,7 +1264,7 @@ class DeviceIndex:
         lp = max([int(p.p_len.max()) for p in plans if len(p.p_len)]
                  + [0])
         if lp == 0:
-            return cube, pv
+            return cube
         h = {k: self._put(np.concatenate(v).astype(np.int64))
              for k, v in cols.items()}
         qb = self._put(np.concatenate(qb))
@@ -1284,8 +1284,7 @@ class DeviceIndex:
             ok, ((qb[:, None] * T + h["p_group"][:, None]) * P + slot) * D
             + doc, n_out).reshape(-1)
         cube.index_add_(0, tgt, torch.where(ok, pay, 0).reshape(-1))
-        pv[tgt] = ok.reshape(-1)
-        return cube, pv
+        return cube
 
     def _select(self, final, nm, k2: int, n_sel: int):
         """F2/FD selection: block winners, then an exact top-k2 over them;
@@ -1456,10 +1455,8 @@ class DeviceIndex:
                     s_base[:, r], s_quota[:, r], s_syn[:, r],
                     s_isbase[:, r])
 
-        # K1 on the card, one launch per query of the wave
-        min_sc = torch.stack([min_scores(cube[b], pv[b], freqw[b],
-                                         counts[b])[0] for b in range(B)])
-        present2 = pv.any(dim=2)                              # [B, T, κ]
+        # K1 on the card: the whole wave in one launch
+        min_sc, present2 = min_scores(cube, pv, freqw, counts)  # [B, T, κ]
         match2 = (match_gates(present2, required, negative, table, use_table)
                   & (cval > 0.0) & (min_sc < BIG))
         final = torch.where(match2, min_sc * torch.gather(mult, 1, cand),
@@ -1482,9 +1479,9 @@ class DeviceIndex:
         p_ax = torch.arange(P, device=dev)[:, None]           # [P, 1]
         ms, pres = [], []
         for b, p in enumerate(plans):
-            flat, pv_flat = self._scatter_postings([p], T, T * P * D)
-            cube = flat[:-1].view(T, P, D)
-            pv = pv_flat[:-1].view(T, P, D)
+            cube = self._scatter_postings([p], T, T * P * D)[:-1].view(
+                T, P, D)
+            pv = cube != 0
             for r in range(len(p.c_slot)):
                 if p.c_slot[r] < 0:
                     continue
@@ -1539,8 +1536,8 @@ class DeviceIndex:
         if any(len(p.p_len) and p.p_len.max() > 0 for p in plans):
             # base tail postings of dead docs drop here; the kernel masks
             # only the resident quarters
-            flat, _ = self._scatter_postings(plans, T, B * T * P * D)
-            tail = flat[:-1].view(B, T, P, D)
+            tail = self._scatter_postings(plans, T, B * T * P * D)[
+                :-1].view(B, T, P, D)
         ms, bits = fd_scores_kernel.fd_scores(
             self._put(cs.reshape(B, T * 4)), self._put(sy.reshape(B, T * 4)),
             self.d_cube, self.d_dead, freqw, counts, tail)

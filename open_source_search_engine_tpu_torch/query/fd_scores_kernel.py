@@ -14,11 +14,13 @@ and score the assembled ``[T, P]`` slots with K1's body. Outputs
 ``min_score [B, D]`` float32 and a presence bitmask ``[B, D]`` int32
 (bit t set when group t has a nonzero slot, for every t < T ≤ 8).
 
-What bounds K2 on the H100 is bytes: the quarter-row gather reads
-B·T·16·D·4 bytes of the resident cube, against a few hundred float32
-operations per query and doc. The kernel reads each quarter row once,
-coalesced along the doc axis, and never writes the assembled cube back
-to device memory (``csrc/fd_scores.cu`` has the design).
+K2's bound on the H100 is bytes: the wave's distinct quarter rows and
+the dense tail, against a few hundred float32 operations per query and
+doc. A block stages its query's distinct quarters and its tail rows for
+a tile of docs in shared memory with asynchronous copies, gates and
+scores them there, and never writes the assembled cube back to device
+memory; what then sets its pace is the scoring body's instruction
+stream (``csrc/fd_scores.cu`` has the design and the measurement).
 
 * :func:`fd_scores_plain` is the torch transcription of the unfused
   ``_direct_cube`` assembly (``devindex.py:2738-2746``) plus the tail

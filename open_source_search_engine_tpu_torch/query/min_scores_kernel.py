@@ -12,10 +12,13 @@ single-term top-``MAX_TOP`` sums, the P×P pair cross products within
 * :func:`min_scores_plain` is the torch transcription of the reference's
   jnp chain (``scorer.py:191-242``). The CPU path and the tests use it;
   with a card present the main path never does.
-* :func:`min_scores_fused` is the wrapper. A CPU cube takes the plain
-  version; a CUDA cube launches the kernel or raises — nothing falls
-  back. Payload validity is "payload ≠ 0", the build-side invariant
-  (every real posting has densityrank ≥ 1 or a non-body hashgroup).
+* :func:`min_scores_fused` is the wrapper, for one query's ``[T, P, D]``
+  cube or a wave's ``[B, T, P, D]`` (the reference vmaps over the wave;
+  here the kernel has the batch axis, so a wave is one launch). A CPU
+  cube takes the plain version, once per query; a CUDA cube launches the
+  kernel or raises — nothing falls back. Payload validity is "payload ≠
+  0", the build-side invariant (every real posting has densityrank ≥ 1
+  or a non-body hashgroup).
 * The kernel builds at first use with ``nvcc`` into
   ``build/torch_kernels/`` at the repository root (rebuilt when the
   source changes) and is bound through ``ctypes`` (:mod:`.cuda_build`).
@@ -41,7 +44,8 @@ BIG = 9.99e8  # the reference's 999999999.0 sentinel
 #: position slots per term group the kernel is built for (any T works)
 KERNEL_P = 16
 
-#: launches of the CUDA kernel (one per call that reached the card)
+#: launches of the CUDA kernel (one per call that reached the card,
+#: whatever its batch)
 launches = 0
 #: calls of the plain version, whatever the device
 plain_calls = 0
@@ -182,37 +186,47 @@ def build():
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_uint, ctypes.c_int, ctypes.c_int,
-             ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def min_scores_fused(cube: torch.Tensor, freq_weight: torch.Tensor,
                      counts: torch.Tensor,
                      pvalid: torch.Tensor | None = None) -> torch.Tensor:
-    """``[T, P, D]`` int32 cube (validity = payload ≠ 0), float32
-    ``freq_weight [T]``, bool ``counts [T]`` → ``min_score [D]``.
+    """One query's ``[T, P, D]`` int32 cube (validity = payload ≠ 0),
+    float32 ``freq_weight [T]`` and bool ``counts [T]`` → ``min_score
+    [D]``; or a wave's ``[B, T, P, D]`` cube with ``[B, T]`` weights and
+    counts → ``min_score [B, D]``.
 
     This wrapper alone decides where the chain runs. A CPU cube takes
-    :func:`min_scores_plain` (with ``pvalid``, the scatter's validity,
-    when given; else ``cube != 0``). A CUDA cube launches the kernel on
-    the current stream; any other device, a shape or type the kernel
-    does not take, or a refused launch raises."""
+    :func:`min_scores_plain` once per query (with ``pvalid``, the
+    scatter's validity, when given; else ``cube != 0``). A CUDA cube makes
+    one launch of the kernel on the current stream, whatever B; any other
+    device, a shape or type the kernel does not take, or a refused launch
+    raises."""
     global launches
+    batched = cube.dim() == 4
     if cube.device.type == "cpu":
-        return min_scores_plain(cube, cube != 0 if pvalid is None else pvalid,
-                                freq_weight, counts)
+        pv = cube != 0 if pvalid is None else pvalid
+        if not batched:
+            return min_scores_plain(cube, pv, freq_weight, counts)
+        return torch.stack([
+            min_scores_plain(cube[b], pv[b], freq_weight[b], counts[b])
+            for b in range(cube.shape[0])])
     if cube.device.type != "cuda":
         raise ValueError(f"min_scores_fused: unsupported device {cube.device}")
-    if cube.dim() != 3:
-        raise ValueError(f"cube must be [T, P, D], got {tuple(cube.shape)}")
-    T, P, D = cube.shape
-    if P != KERNEL_P or T < 1:
-        raise ValueError(f"kernel takes T >= 1 and P = {KERNEL_P}, got "
-                         f"T={T} P={P}")
+    if cube.dim() not in (3, 4):
+        raise ValueError(f"cube must be [T, P, D] or [B, T, P, D], got "
+                         f"{tuple(cube.shape)}")
+    B, T, P, D = cube.shape if batched else (1, *cube.shape)
+    if P != KERNEL_P or T < 1 or B < 1:
+        raise ValueError(f"kernel takes B >= 1, T >= 1 and P = {KERNEL_P}, "
+                         f"got B={B} T={T} P={P}")
+    lead = (B,) if batched else ()
     cuda_build.check_inputs(cube.device, (
-        ("cube", cube, torch.int32, (T, P, D)),
-        ("freq_weight", freq_weight, torch.float32, (T,)),
-        ("counts", counts, torch.bool, (T,))))
-    out = torch.empty(D, dtype=torch.float32, device=cube.device)
+        ("cube", cube, torch.int32, tuple(cube.shape)),
+        ("freq_weight", freq_weight, torch.float32, lead + (T,)),
+        ("counts", counts, torch.bool, lead + (T,))))
+    out = torch.empty(lead + (D,), dtype=torch.float32, device=cube.device)
     if D == 0:
         return out
     fn = cuda_build.load("min_scores", "osse_min_scores", _ARGTYPES)
@@ -220,7 +234,7 @@ def min_scores_fused(cube: torch.Tensor, freq_weight: torch.Tensor,
     with torch.cuda.device(cube.device):
         stream = torch.cuda.current_stream(cube.device).cuda_stream
         rc = fn(cube.data_ptr(), freq_weight.data_ptr(), counts.data_ptr(),
-                tables.data_ptr(), cuda_build.IN_BODY_MASK, T, D,
+                tables.data_ptr(), cuda_build.IN_BODY_MASK, B, T, D,
                 out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"min_scores kernel launch failed: CUDA error "

@@ -42,10 +42,12 @@ def scatter_cube(doc_idx, payload, slot, valid, n_docs_padded: int,
 
 
 def min_scores(cube, pvalid, freq_weight, single_counts):
-    """(min_score [D] before multipliers, present [T, D]); the kernel
-    wrapper picks the kernel or the plain version by the cube's device."""
+    """(min_score [D] before multipliers, present [T, D]) for a
+    ``[T, P, D]`` cube, or (min_score [B, D], present [B, T, D]) for a
+    wave's ``[B, T, P, D]`` (one kernel launch); the kernel wrapper picks
+    the kernel or the plain version by the cube's device."""
     return (min_scores_fused(cube, freq_weight, single_counts, pvalid),
-            pvalid.any(dim=1))
+            pvalid.any(dim=-2))
 
 
 def final_multipliers(siterank, doclang, qlang):
