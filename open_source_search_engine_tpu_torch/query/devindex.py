@@ -26,8 +26,16 @@ Escalation: a query whose best unscored bound beats its k-th exact score
 whole doc axis, where the check passes by construction — the pruning is
 lossless.
 
-Not carried in this slice: the device ingest plane (``build/devbuild``),
-the base-column disk cache, the plan cache, the resident serving loop,
+Build: the base and delta columns come from the device ingest plane
+(``build/devbuild.py``) on ``self.device``, CPU included; the host NumPy
+pipeline below is its oracle, and the path ``OSSE_DEVBUILD=0`` selects.
+
+Completion: ``issue_batch`` queues the waves and the copy of their
+result rows into a pinned host buffer of the batch's own, and records an
+event; ``collect_batch`` waits on that event only, so a loop with two
+batches in flight collects the first without waiting for the second.
+
+Not carried in this slice: the base-column disk cache, the plan cache,
 the telemetry and guard planes, and the ``gbmin:``/``gbmax:``/
 ``gbsortby:`` columns (queries using them raise, as the packer's do).
 Every tensor lives on ``self.device`` (the collection's device unless
@@ -37,12 +45,14 @@ by that device.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from ..build import devbuild
 from ..device import resolve_device
 from ..index import clusterdb as clusterdb_mod
 from ..index import posdb
@@ -198,6 +208,13 @@ def _term_dfs(termids: np.ndarray, newpair: np.ndarray):
     starts = np.nonzero(tchange)[0]
     df = np.add.reduceat(newpair.astype(np.int64), starts)
     return termids[starts].copy(), np.r_[starts, n].astype(np.int64), df
+
+
+def base_fingerprint(rdb) -> tuple:
+    """The run set a base is built from: a dump or a merge moves it, a
+    memtable write does not (``engine.get_device_index`` compares it
+    with ``DeviceIndex._base_fp``)."""
+    return tuple((r.path.name, len(r)) for r in rdb.runs)
 
 
 def _pad_col(a: np.ndarray, size: int) -> np.ndarray:
@@ -375,6 +392,8 @@ class PendingBatch:
     f2_nsel: int
     bmax: int
     topk: int
+    #: the first round's queued result copy (``_queue_fetch``)
+    fetch: tuple | None = None
 
 
 class DeviceIndex:
@@ -393,7 +412,6 @@ class DeviceIndex:
         self.P = max_positions
         self._built_version = -1
         self._base_fp = None
-        self._pinned = None       # host buffer of the per-round fetch
         self.full_rebuilds = 0    # O(corpus) base rebuilds (run-set moved)
         self.delta_rebuilds = 0   # O(memtable) delta-only refreshes
         self.escalations = 0      # pruning misses rerun wider
@@ -402,11 +420,27 @@ class DeviceIndex:
         self.refresh()
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
-        """Host array → device tensor (uint32 as its int32 view)."""
+        """Host array → device tensor (uint32 as its int32 view). On the
+        card the array is staged in pinned memory and copied without
+        blocking: a blocking copy from pageable memory synchronizes the
+        stream, which would make each wave's issue wait for every wave
+        queued before it."""
         a = np.ascontiguousarray(a)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
-        return torch.from_numpy(a).to(self.device)
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        """A build stage's span, ended by a wait for this thread's stream
+        so that the span holds the stage's device time (a background
+        rebuild's stream is its own)."""
+        with trace.span(name):
+            yield
+            devbuild.sync_stream(self.device)
 
     def _write_tail(self, buf: torch.Tensor, tail: np.ndarray,
                     offset: int) -> None:
@@ -424,7 +458,7 @@ class DeviceIndex:
             return False
         self._sitehash = None    # clusterdb view refreshes lazily
         self._docid_sorted = None
-        fp = tuple((r.path.name, len(r)) for r in rdb.runs)
+        fp = base_fingerprint(rdb)
         if fp != self._base_fp:
             self._build_base(fp)
         # the delta can outgrow the doc-capacity headroom and the column
@@ -451,11 +485,30 @@ class DeviceIndex:
     def _build_base(self, fp, min_docs: int = 0, min_delta: int = 0
                     ) -> None:
         """Base columns from the posdb runs (merged, tombstones
-        annihilated), plus preallocated delta tails."""
+        annihilated), plus preallocated delta tails. The device ingest
+        plane merges and derives on ``self.device``; with
+        ``OSSE_DEVBUILD=0`` the host pipeline below does (the oracle)."""
         runs = self.coll.posdb.runs
         P = self.P
-        batch = merge_batches([r.batch() for r in runs]) if runs else None
-        if batch is not None and len(batch):
+        dv = batch = None
+        if devbuild.enabled() and runs:
+            dv = devbuild.build_base([r.batch().keys for r in runs],
+                                     self.device)
+        if dv is None and runs:
+            batch = merge_batches([r.batch() for r in runs])
+        if dv is not None:
+            # the columns stay on the device; the directory tables, the
+            # docid map and the doc-pair column came back to the host
+            self.dir_termids = dv.dir_termids
+            self.base_df = dv.df
+            self.dir_dstart = dv.dir_dstart
+            self.dir_pstart = dv.dir_pstart
+            self.base_docids = dv.base_docids
+            doc_col = dv.h_doc_col
+            n = dv.n
+            if n >= _MAX_POSTINGS:
+                raise self._postings_overflow()
+        elif batch is not None and len(batch):
             f = posdb.unpack(batch.keys)
             termids, docids = f["termid"], f["docid"]
             occ = _occ_ranks(termids, docids)
@@ -518,7 +571,7 @@ class DeviceIndex:
         # (getSiteRank(miniMergedList[0]), Posdb.cpp:6989)
         sr = np.zeros(self.D_cap, np.uint8)
         dl = np.zeros(self.D_cap, np.uint8)
-        if n:
+        if n and dv is None:
             first = np.unique(docidx, return_index=True)[1]
             sr[docidx[first]] = siterank[first]
             dl[docidx[first]] = langid[first]
@@ -582,29 +635,47 @@ class DeviceIndex:
         self.N2 = max(_bucket(max(self.Nb // 4, min_delta, 1),
                               COL_QUANTUM), COL_QUANTUM)
         self.M2 = self.N2
-        self.d_payload = self._put(_pad_col(payload, self.Nb + self.N2))
-        docc = ((docidx.astype(np.uint32) << _OCC_BITS)
-                | pocc.astype(np.uint32))
-        self.d_docc = self._put(_pad_col(docc, self.Nb + self.N2))
-        self.d_doc = self._put(_pad_col(doc_col, self.Mb + self.M2))
-        # impacts reside as round-up float16 at 1/IMPACT_SCALE
-        self.d_imp = self._put(_pad_col(demote_impacts(imp_col),
-                                        self.Mb + self.M2))
-        self.d_rs = self._put(_pad_col(rs_col, self.Mb + self.M2))
-        self.d_cnt = self._put(_pad_col(cnt_col, self.Mb + self.M2))
+        if dv is not None:
+            # device-built columns never left the device: zero-extend
+            # them to the base + delta capacity
+            self.d_payload = devbuild.fit(dv.cols["payload"],
+                                          self.Nb + self.N2)
+            self.d_docc = devbuild.fit(dv.cols["docc"], self.Nb + self.N2)
+            self.d_doc = devbuild.fit(dv.cols["doc_col"], self.Mb + self.M2)
+            self.d_imp = devbuild.fit(dv.cols["imp16"], self.Mb + self.M2)
+            self.d_rs = devbuild.fit(dv.cols["rs"], self.Mb + self.M2)
+            self.d_cnt = devbuild.fit(dv.cols["cnt"], self.Mb + self.M2)
+        else:
+            self.d_payload = self._put(_pad_col(payload, self.Nb + self.N2))
+            docc = ((docidx.astype(np.uint32) << _OCC_BITS)
+                    | pocc.astype(np.uint32))
+            self.d_docc = self._put(_pad_col(docc, self.Nb + self.N2))
+            self.d_doc = self._put(_pad_col(doc_col, self.Mb + self.M2))
+            # impacts reside as round-up float16 at 1/IMPACT_SCALE
+            self.d_imp = self._put(_pad_col(demote_impacts(imp_col),
+                                            self.Mb + self.M2))
+            self.d_rs = self._put(_pad_col(rs_col, self.Mb + self.M2))
+            self.d_cnt = self._put(_pad_col(cnt_col, self.Mb + self.M2))
         dr_cum = np.r_[0, np.cumsum(dr_lens)].astype(np.int64)
-        (self.d_dense_imp, self.d_dense_rs,
-         self.d_dense_cnt) = _build_dense_rows(
-            self.d_doc, self.d_imp, self.d_rs, self.d_cnt, dr_starts,
-            dr_cum, V=V, D=self.D_cap)
-        self.d_siterank = self._put(sr)
-        self.d_doclang = self._put(dl)
+        with self._stage("devindex.dense_rows"):
+            (self.d_dense_imp, self.d_dense_rs,
+             self.d_dense_cnt) = _build_dense_rows(
+                self.d_doc, self.d_imp, self.d_rs, self.d_cnt, dr_starts,
+                dr_cum, V=V, D=self.D_cap)
+        with self._stage("devindex.doc_meta"):
+            if dv is not None:
+                self.d_siterank, self.d_doclang = devbuild.doc_meta(
+                    self._put(sr), self._put(dl), dv)
+            else:
+                self.d_siterank = self._put(sr)
+                self.d_doclang = self._put(dl)
         self.d_dead = self._put(np.zeros(self.D_cap, bool))
         self.Vc = Vc
         c_cum = np.r_[0, np.cumsum(c_lens)].astype(np.int64)
-        self.d_cube = _cube_rows(self.d_payload, self.d_docc, c_starts,
-                                 c_cum, D=self.D_cap, n_positions=P,
-                                 total=Vc * P * self.D_cap)
+        with self._stage("devindex.cube_rows"):
+            self.d_cube = _cube_rows(self.d_payload, self.d_docc, c_starts,
+                                     c_cum, D=self.D_cap, n_positions=P,
+                                     total=Vc * P * self.D_cap)
         self._base_fp = fp
         self.full_rebuilds += 1
         log.info("device base built: %d postings, %d docs, %d terms "
@@ -679,6 +750,11 @@ class DeviceIndex:
             docidx = np.where(
                 p_ok, p_di,
                 Db + np.searchsorted(new_docids, p_doc)).astype(np.int32)
+            if devbuild.enabled():
+                self._fold_device_delta(fp_, docidx, new_docids)
+                self.d_dead = self._put(dead)
+                self.delta_rebuilds += 1
+                return
             # delta sort key is (termid, doc index, wordpos): new docs'
             # indexes are not docid-monotonic
             order = np.lexsort((fp_["wordpos"], docidx, fp_["termid"]))
@@ -740,6 +816,31 @@ class DeviceIndex:
             self.d_doclang[idx] = self._put(upd_dl)
         self.d_dead = self._put(dead)
         self.delta_rebuilds += 1
+
+    def _fold_device_delta(self, fp_, docidx, new_docids) -> None:
+        """The memtable positives sorted and derived on the device
+        (``devbuild.build_delta``), written straight into the column
+        tails: the fold never round-trips through the host."""
+        dv = devbuild.build_delta(fp_, docidx, self.device)
+        if dv.n > self.N2 or dv.n_pairs > self.M2:
+            raise _DeltaOverflow(needed_cols=max(dv.n, dv.n_pairs))
+        if self.Nb + dv.n >= _MAX_POSTINGS:
+            raise self._postings_overflow()
+        self.dir2_termids = dv.dir_termids
+        self.delta_df = dv.df
+        self.dir2_dstart = dv.dir_dstart
+        self.dir2_pstart = dv.dir_pstart
+        self.all_docids = np.concatenate([self.base_docids, new_docids])
+        fit = devbuild.fit
+        self.d_payload[self.Nb:].copy_(fit(dv.cols["payload"], self.N2))
+        self.d_docc[self.Nb:].copy_(fit(dv.cols["docc"], self.N2))
+        self.d_doc[self.Mb:].copy_(fit(dv.cols["doc_col"], self.M2))
+        self.d_imp[self.Mb:].copy_(fit(dv.cols["imp16"], self.M2))
+        self.d_rs[self.Mb:].copy_(
+            devbuild.offset_runstarts(dv, self.Nb, self.M2))
+        self.d_cnt[self.Mb:].copy_(fit(dv.cols["cnt"], self.M2))
+        self.d_siterank, self.d_doclang = devbuild.doc_meta(
+            self.d_siterank, self.d_doclang, dv)
 
     def _set_empty_delta(self) -> None:
         self.dir2_termids = np.empty(0, np.uint64)
@@ -1008,7 +1109,8 @@ class DeviceIndex:
     def issue_batch(self, queries, topk: int = 64,
                     lang: int = 0) -> PendingBatch:
         """Plan, route and queue the first round of waves on the device,
-        fetching nothing."""
+        with the copy of their result rows to the host: nothing waits
+        for the device."""
         with trace.span("devindex.plan", queries=len(queries)):
             plans = [self.plan(q if isinstance(q, QueryPlan)
                                else compile_query(q, lang))
@@ -1057,7 +1159,8 @@ class DeviceIndex:
         waves = self._issue_waves(plans, f1, f2, topk, k2v, f2_nsel, bmax)
         return PendingBatch(plans=plans, results=results, waves=waves,
                             k_req=k_req, k2v=k2v, f2_nsel=f2_nsel,
-                            bmax=bmax, topk=topk)
+                            bmax=bmax, topk=topk,
+                            fetch=self._queue_fetch([w[4] for w in waves]))
 
     def _issue_waves(self, plans, f1, f2, topk, k2v, f2_nsel, bmax):
         """Build and queue one round of waves; the caller fetches every
@@ -1114,26 +1217,35 @@ class DeviceIndex:
                     [plans[i] for i in chunk], k2v, f2_nsel)))
         return waves
 
-    def _fetch(self, outs: list[torch.Tensor]) -> list[np.ndarray]:
-        """Every wave's packed rows in one device → host copy (through
-        one reused pinned buffer on the card) and one synchronization."""
+    def _queue_fetch(self, outs: list[torch.Tensor]) -> tuple:
+        """Queue every wave's packed rows for one device → host copy into
+        a pinned buffer of their own (two batches in flight never share
+        one), and record the event that marks it done. Returns what
+        :meth:`_wait_fetch` takes."""
+        shapes = [o.shape for o in outs]
+        if not outs:
+            return None, None, shapes
         flat = torch.cat([o.reshape(-1) for o in outs])
-        if flat.device.type == "cuda":
-            n = flat.numel()
-            if self._pinned is None or self._pinned.numel() < n:
-                self._pinned = torch.empty(max(n, 1 << 16),
-                                           dtype=torch.int32,
-                                           pin_memory=True)
-            host = self._pinned[:n]
-            host.copy_(flat, non_blocking=True)
-            torch.cuda.current_stream(flat.device).synchronize()
-            arr = host.numpy().copy()
-        else:
-            arr = flat.numpy()
+        if flat.device.type != "cuda":
+            return flat, None, shapes
+        host = torch.empty(flat.numel(), dtype=torch.int32, pin_memory=True)
+        host.copy_(flat, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(flat.device))
+        return host, done, shapes
+
+    def _wait_fetch(self, fetch: tuple) -> list[np.ndarray]:
+        """Wait for one queued copy (its event only, not the stream) and
+        split it back into the waves' rows."""
+        host, done, shapes = fetch
+        if done is not None:
+            done.synchronize()
+        arr = host.numpy() if host is not None else None
         res, off = [], 0
-        for o in outs:
-            res.append(arr[off:off + o.numel()].reshape(o.shape))
-            off += o.numel()
+        for shape in shapes:
+            n = int(np.prod(shape))
+            res.append(arr[off:off + n].reshape(shape))
+            off += n
         return res
 
     def collect_batch(self, pending: PendingBatch):
@@ -1142,9 +1254,10 @@ class DeviceIndex:
         plans, results = pending.plans, pending.results
         waves, f2_nsel = pending.waves, pending.f2_nsel
         k_req = pending.k_req
+        fetch = pending.fetch
         while waves:
             with trace.span("devindex.device", waves=len(waves)):
-                outs = self._fetch([w[4] for w in waves])
+                outs = self._wait_fetch(fetch)
             f1_next: list[int] = []
             f2_next: list[int] = []
             for (kind, kappa, k2g, idxs, _), out in zip(waves, outs):
@@ -1173,6 +1286,7 @@ class DeviceIndex:
             waves = self._issue_waves(
                 plans, f1_next, f2_next, pending.topk, pending.k2v,
                 f2_nsel, pending.bmax) if (f1_next or f2_next) else []
+            fetch = self._queue_fetch([w[4] for w in waves])
         return results
 
     def _parse_out(self, row: np.ndarray, k2: int):

@@ -13,29 +13,43 @@ Docid-range multipass (``Msg39.cpp:277-305``): when the candidate set
 exceeds ``max_docs_per_pass``, the engine scores candidate slices and
 merges the top-k across passes.
 
-Not carried yet: the speller (``suggestion`` is always None), the
-result cache, deadlines, the resident serving loop and the background
-rebuild of the device index.
+The device route serves through the collection's resident loop
+(``search_device_batch(resident=True)``, owned by the tenant plane) and
+rebuilds its base in the background after a dump
+(:func:`get_device_index`).
+
+Not carried yet: the speller (``suggestion`` is always None), the result
+cache and the compiled-plan cache (``_compile_cached``: the cache
+plane).
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+import time
 from collections import Counter
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ..build import docproc
 from ..index import clusterdb as cdb
 from ..index import titledb
 from ..index.collection import Collection
+from ..utils import deadline as deadline_mod
+from ..utils import threads as _threads
 from ..utils import trace
+from ..utils.log import get_logger
 from . import summary as summary_mod
 from .compiler import QueryPlan, compile_query
-from .devindex import DeviceIndex
+from .devindex import DeviceIndex, base_fingerprint
 from .packer import pack_pass, prepare_query
 from .rerank import post_query_rerank
 from .scorer import run_query
+
+log = get_logger("query")
 
 #: site clustering: at most this many results per site (Msg51.h:96)
 MAX_PER_SITE = 2
@@ -265,18 +279,81 @@ def search(coll: Collection, q: str | QueryPlan, *, topk: int = 10,
 
 # ---------------------------------------------------- device-resident route
 
+#: guards the creation of each collection's device-index lock
+_DI_CREATE_LOCK = threading.Lock()
+
+
 def get_device_index(coll: Collection):
     """The collection's device-resident index, built at first use and
-    refreshed when the posdb version moves: a memtable change folds into
-    the delta (O(memtable)), a dump rebuilds the base in this call. The
-    reference rebuilds the base in a background thread while the old
-    index serves; that waits for the port's serving layer."""
+    refreshed when the posdb version moves.
+
+    A memtable write refreshes the delta in this call (O(memtable)). A
+    run-set move (a dump or a merge) rebuilds the base in a background
+    thread against a fresh DeviceIndex while the old one keeps serving
+    its pre-dump view, then swaps it in. The rebuild runs on a CUDA
+    stream of its own, so that serving waves do not queue behind its
+    sorts, and waits for that stream before the swap, so that no wave
+    reads a half-built column. When the device cannot hold two resident
+    sets (the reference's 16 GB budget: 2 · resident + 2 GiB > 14 GiB),
+    the rebuild blocks instead. A rebuild that fails logs and leaves the
+    old index serving."""
+    lock = getattr(coll, "_di_lock", None)
+    if lock is None:
+        with _DI_CREATE_LOCK:
+            lock = getattr(coll, "_di_lock", None)
+            if lock is None:
+                lock = coll._di_lock = threading.Lock()
     di = getattr(coll, "_device_index", None)
     if di is None:
-        di = coll._device_index = build_device_index(coll)
-    else:
-        di.refresh()
+        with lock:
+            di = getattr(coll, "_device_index", None)
+            if di is None:
+                di = coll._device_index = build_device_index(coll)
+        return di
+
+    rdb = coll.posdb
+    if rdb.version == di._built_version:
+        return di
+    if base_fingerprint(rdb) == di._base_fp:
+        with lock:  # concurrent searches must not both mutate it
+            di.refresh()  # delta only: O(memtable)
+        return di
+    # the run set moved: a full rebuild. Old and new columns must both
+    # fit while the swap is in flight.
+    if 2 * di.resident_bytes() + (2 << 30) > (14 << 30):
+        with lock:
+            di.refresh()  # blocking rebuild: two sets would not fit
+        return di
+    with lock:
+        if getattr(coll, "_di_rebuilding", False):
+            return di  # a rebuild is in flight: serve the old view
+        coll._di_rebuilding = True
+        _threads.spawn("devindex-rebuild", _rebuild, coll, lock, di)
     return di
+
+
+def _rebuild(coll: Collection, lock, old) -> None:
+    """The background base rebuild (see :func:`get_device_index`). The
+    fresh index replaces ``old`` only if ``old`` is still the current
+    one: a tenant parked meanwhile stays parked."""
+    try:
+        t0 = time.perf_counter()
+        if coll.device.type == "cuda":
+            stream = torch.cuda.Stream(coll.device)
+            with torch.cuda.stream(stream):
+                fresh = build_device_index(coll)
+            stream.synchronize()
+        else:
+            fresh = build_device_index(coll)
+        with lock:
+            if getattr(coll, "_device_index", None) is old:
+                coll._device_index = fresh
+        trace.record("devindex.rebuild", t0)
+    except Exception:  # noqa: BLE001 — keep serving the old index
+        log.exception("background device rebuild failed")
+    finally:
+        with lock:
+            coll._di_rebuilding = False
 
 
 def build_device_index(coll: Collection, device=None):
@@ -285,24 +362,54 @@ def build_device_index(coll: Collection, device=None):
     return DeviceIndex(coll, device=device)
 
 
+def spawn_resident_loop(di_fn, gen_fn, **kw):
+    """A ResidentLoop over ``di_fn`` (see :mod:`.resident`)."""
+    from .resident import ResidentLoop
+    return ResidentLoop(di_fn, gen_fn=gen_fn, **kw)
+
+
+def get_resident_loop(coll: Collection, deadline=None):
+    """The collection's ResidentLoop, owned by the tenant plane's
+    :class:`~..serve.tenancy.ResidencyManager` (LRU hot set, parked cold
+    tenants, single-flight cold start)."""
+    from ..serve.tenancy import g_residency
+    return g_residency.loop_for(coll, deadline=deadline)
+
+
 def search_device_batch(coll: Collection, queries, *, topk: int = 10,
                         lang: int = 0, with_snippets: bool = True,
                         site_cluster: bool = True, offset: int = 0,
-                        resident: bool = False) -> list[SearchResults]:
+                        resident: bool = False, results_lock=None
+                        ) -> list[SearchResults]:
     """Batched device-resident search: the batch's queries are planned on
     the host and answered in waves on the collection's device, one fetch
     per round; then the page build runs per query, with clusterdb site
-    clustering."""
-    if resident:
-        raise NotImplementedError(
-            "resident=True needs the resident serving loop, not ported yet "
-            "(ROADMAP item 7)")
+    clustering.
+
+    ``resident=True`` hands the batch to the collection's ResidentLoop,
+    which is already double-buffering waves, instead of issuing and
+    waiting here. ``results_lock``, when given, is held only around the
+    page build (titledb reads mutate rdblite state), never around the
+    device wait."""
     plans = [q if isinstance(q, QueryPlan) else compile_query(q, lang=lang)
              for q in queries]
     ktot = max((topk + offset) * 2, 64)
-    di = get_device_index(coll)
-    with trace.span("query.device_batch", queries=len(plans)):
-        raw = di.search_batch(plans, topk=ktot, lang=lang)
+    if deadline_mod.check_abandon("device.dispatch"):
+        # the deadline passed while this batch queued: abandon before
+        # the device wave, not after it
+        raise deadline_mod.DeadlineExceeded(
+            "deadline exceeded before device dispatch")
+    if resident:
+        loop = get_resident_loop(coll, deadline=deadline_mod.current())
+        with trace.span("query.device_batch", queries=len(plans)):
+            ticket = loop.submit(plans, topk=ktot, lang=lang,
+                                 deadline=deadline_mod.current())
+            raw = ticket.wait()
+        di = ticket.di  # the index the wave ran against
+    else:
+        di = get_device_index(coll)
+        with trace.span("query.device_batch", queries=len(plans)):
+            raw = di.search_batch(plans, topk=ktot, lang=lang)
 
     # one titlerec memo for the whole batch
     doc_memo: dict[int, dict | None] = {}
@@ -316,7 +423,9 @@ def search_device_batch(coll: Collection, queries, *, topk: int = 10,
         return doc_memo[d]
 
     out = []
-    with trace.span("query.results_batch", queries=len(plans)):
+    lock_ctx = results_lock if results_lock is not None \
+        else contextlib.nullcontext()
+    with lock_ctx, trace.span("query.results_batch", queries=len(plans)):
         for plan, (docids, scores, n_matched) in zip(plans, raw):
             results, clustered = build_results(
                 get_doc, docids, scores, plan,

@@ -35,6 +35,17 @@ def span(name: str, **tags):
             log.debug("%s %.3f ms %s", name, dt * 1e3, tags or "")
 
 
+def record(name: str, t0: float, t1: float | None = None, **tags) -> None:
+    """Add a stage timed by the caller (``time.perf_counter()`` marks)
+    to the totals, as a span would."""
+    dt = (time.perf_counter() if t1 is None else t1) - t0
+    tot = totals[name]
+    tot[0] += 1
+    tot[1] += dt
+    if log.isEnabledFor(10):
+        log.debug("%s %.3f ms %s", name, dt * 1e3, tags or "")
+
+
 def tag(**tags) -> None:
     """Attach values to the enclosing stage: logged at DEBUG."""
     if log.isEnabledFor(10):

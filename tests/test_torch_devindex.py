@@ -33,6 +33,8 @@ from open_source_search_engine_tpu.query.compiler import \
     compile_query as jcompile
 from open_source_search_engine_tpu.query.devindex import \
     DeviceIndex as JDeviceIndex
+from open_source_search_engine_tpu.serve.tenancy import \
+    g_residency as jresidency
 from open_source_search_engine_tpu_torch.build import docproc
 from open_source_search_engine_tpu_torch.corpus import (
     ROUTE_ENV, ROUTE_QUERIES, assert_tie_run_parity, route_docs)
@@ -42,12 +44,24 @@ from open_source_search_engine_tpu_torch.index.collection import Collection
 from open_source_search_engine_tpu_torch.query import engine
 from open_source_search_engine_tpu_torch.query.compiler import compile_query
 from open_source_search_engine_tpu_torch.query.devindex import DeviceIndex
+from open_source_search_engine_tpu_torch.serve.tenancy import \
+    g_residency as residency
+from tests import jax_gc
 from tests.golden.corpus import GOLDEN_QUERIES, golden_docs
 from tests.test_golden import _check
 
 #: the tier-1 run shares the host's cores among several workers, and
 #: these small tensors gain nothing from intra-op threads
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _gc_quiet():
+    """No cyclic collection while this module drives the JAX package's
+    device index (``tests/jax_gc.py``)."""
+    with jax_gc.quiet():
+        yield
+
 
 RTOL = 1e-5
 ROUTE_SET = list(ROUTE_QUERIES) + ["alpha gamma", "alpha beta gamma",
@@ -212,8 +226,21 @@ def test_search_device_batch_matches_jax_engine(tmp_path):
                                    [r.score for r in b.results], rtol=RTOL)
         assert [(r.url, r.title, r.snippet) for r in a.results] == \
             [(r.url, r.title, r.snippet) for r in b.results], q
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        engine.search_device_batch(tc, qs[:1], resident=True)
+    # through each package's resident loop: the same pages
+    try:
+        want = jengine.search_device_batch(jc, qs, topk=10,
+                                           with_snippets=True, resident=True)
+        got = engine.search_device_batch(tc, qs, topk=10,
+                                         with_snippets=True, resident=True)
+    finally:
+        jresidency.release(jc.name)
+        residency.release(tc.name)
+    for q, a, b in zip(qs, got, want):
+        assert a.total_matches == b.total_matches, q
+        np.testing.assert_allclose([r.score for r in a.results],
+                                   [r.score for r in b.results], rtol=RTOL)
+        assert [(r.url, r.title, r.snippet) for r in a.results] == \
+            [(r.url, r.title, r.snippet) for r in b.results], q
 
 
 def test_delta_refresh_matches_reference(tmp_path):

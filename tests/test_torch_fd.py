@@ -29,10 +29,20 @@ from open_source_search_engine_tpu_torch.index.collection import Collection
 from open_source_search_engine_tpu_torch.query.compiler import compile_query
 from open_source_search_engine_tpu_torch.query import fd_scores_kernel as fdk
 from open_source_search_engine_tpu_torch.query.devindex import DeviceIndex
+from tests import jax_gc
 
 #: the tier-1 run shares the host's cores among several workers, and
 #: these small tensors gain nothing from intra-op threads
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _gc_quiet():
+    """No cyclic collection while this module drives the JAX package's
+    device index (``tests/jax_gc.py``)."""
+    with jax_gc.quiet():
+        yield
+
 
 #: the tolerance tests/test_pallas.py::TestFusedEndToEnd holds the fused
 #: route to (the Pallas body sums in another order)

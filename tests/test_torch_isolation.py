@@ -26,8 +26,12 @@ sys.path.insert(0, {root!r})
 from open_source_search_engine_tpu_torch.__main__ import main
 from open_source_search_engine_tpu_torch.build import docproc
 from open_source_search_engine_tpu_torch.index.collection import Collection
+from open_source_search_engine_tpu_torch.build import devbuild
 from open_source_search_engine_tpu_torch.query import (
-    devindex, engine, fd_scores_kernel)
+    devindex, engine, fd_scores_kernel, resident)
+from open_source_search_engine_tpu_torch.serve.tenancy import g_residency
+from open_source_search_engine_tpu_torch.utils import (
+    chaos, deadline, lockcheck, membudget, priority, stats, threads)
 c = Collection("iso", tempfile.mkdtemp(), device="cpu")
 docproc.index_document(c, "http://a.test/x",
                        "<html><title>alpha</title><p>alpha beta.</p></html>")
@@ -35,7 +39,12 @@ res = engine.search(c, "alpha beta", topk=5)
 assert res.total_matches == 1, res
 res = engine.search_device(c, "alpha beta", topk=5)
 assert res.total_matches == 1, res
+c.dump_all()
 assert devindex.DeviceIndex(c).device.type == "cpu"
+assert stats.g_stats.counters["build.device_base"] >= 1
+res = engine.search_device_batch(c, ["alpha beta"], topk=5, resident=True)
+assert res[0].total_matches == 1, res
+g_residency.reset()
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "open_source_search_engine_tpu"
