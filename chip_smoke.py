@@ -72,11 +72,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
    moved); after ``dump_all()`` ``get_device_index`` returns the old
    index while the rebuild runs (the flag is asserted), a batch is
    served meanwhile, and after the swap the resident answers equal a
-   DeviceIndex built from scratch (columns bitwise). The route corpus
-   (``route_docs(48)`` under ``ROUTE_ENV``) then serves F1, FD and F2
-   queries on the card with results equal to the same index on
-   ``device="cpu"`` (escalation counts are compared on the CPU only:
-   the card's float32 scatter-add sums in no fixed order);
+   DeviceIndex built from scratch (columns bitwise);
+
+   (5d) served over HTTP, the node's entry point: ``SearchHTTPServer``
+   over the same collection (the bench collection lives in the port's
+   ``CollectionDb`` from phase 4 on), the 64 queries as 4 clients x 16
+   and as 16 clients x 4, result cache off, each counted from 0 just
+   before: every page equals ``render_results`` of an in-process
+   ``search_device_batch(resident=True)`` with the server's defaults
+   (snippets and clustering on: scores rtol=1e-5, docids by complete
+   tie runs, every other field exact), K1 and K2 launch, no plain
+   version runs, ``serve.device_error`` stays 0; qps, per-request p50 /
+   max, the batcher's batches and mean size, the loop's waves, the wall
+   split between the ``serve.search`` and device-batch spans, and the
+   device busy time and idle share of each pass run again under the
+   profiler. Then the 64 with the result cache on, filled and read back
+   byte-identical with no kernel launched; a POST /inject whose fresh
+   word the next /search finds (and a cached query misses after it);
+   and with ``checkify`` on, the 64 trip nothing while an injected fault
+   trips, is counted and answers 500;
+
+   (5e) the route corpus (``route_docs(48)`` under ``ROUTE_ENV``)
+   serves F1, FD and F2 queries on the card with results equal to the
+   same index on ``device="cpu"`` (escalation counts are compared on the
+   CPU only: the card's float32 scatter-add sums in no fixed order);
 6. run the golden QA suite (``tests/golden``) on the card through the
    flat path and through ``search_device``, against
    ``tests/golden/expected.json``;
@@ -349,6 +368,206 @@ def check_golden(q, total, results, expected):
         f"{q!r}: duplicate docids"
 
 
+def http_get(base: str, path: str, params: dict):
+    """(status, body) of one GET; an HTTP error status is returned, not
+    raised."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    url = f"{base}{path}?{urllib.parse.urlencode(params)}"
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def http_clients(base: str, queries, n_clients: int, coll: str):
+    """``n_clients`` threads, each sending its share of ``queries`` one
+    request at a time (``/search?c=<coll>&format=json&n=10``). Returns the wall
+    seconds, the per-request milliseconds and {query: body}; every
+    answer must be 200."""
+    import threading
+    lat, pages, errors = [], {}, []
+    start = threading.Barrier(n_clients)
+
+    def client(c):
+        try:
+            start.wait(timeout=60)
+            for q in queries[c::n_clients]:
+                t1 = time.perf_counter()
+                code, body = http_get(base, "/search", {
+                    "q": q, "c": coll, "format": "json", "n": 10})
+                lat.append((time.perf_counter() - t1) * 1e3)
+                assert code == 200, (q, code, body[:300])
+                pages[q] = body
+        except BaseException as exc:  # noqa: BLE001 — reported below
+            errors.append((c, repr(exc)))
+
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(n_clients)]
+    for t in clients:
+        t.start()
+    for t in clients:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in clients), "a client hung"
+    assert not errors, errors
+    assert len(lat) == len(queries)
+    return wall, lat, pages
+
+
+def serve_over_http(colldb, coll, queries, work, reset_counts, profile_fn):
+    """(5d) the node's HTTP entry point on the card: SearchHTTPServer
+    over the bench collection, the 64 queries as 4 clients x 16 and as 16
+    clients x 4 (result cache off), each page equal to ``render_results``
+    of an in-process ``search_device_batch(resident=True)`` with the
+    server's defaults (snippets and site clustering on); K1 and K2 launch,
+    no plain version runs and no device batch fails. Then the cached pass
+    (byte-identical, no launch), a write through POST /inject (found by
+    the next /search, and the cache misses), and the guardrails (the 64
+    trip nothing; an injected fault trips, is counted and answers 500).
+    Returns the phase's numbers."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from open_source_search_engine_tpu_torch.corpus import assert_pages_match
+    from open_source_search_engine_tpu_torch.query import devcheck, engine
+    from open_source_search_engine_tpu_torch.query import \
+        fd_scores_kernel as fdk
+    from open_source_search_engine_tpu_torch.query import \
+        min_scores_kernel as msk
+    from open_source_search_engine_tpu_torch.serve.server import (
+        SearchHTTPServer, render_results)
+    from open_source_search_engine_tpu_torch.utils.stats import g_stats
+
+    t_phase = time.perf_counter()
+    coll.conf.result_cache_ttl = 0
+    # a query's first answer on a fresh index escalates, and its cached
+    # plan keeps the wider floor (as in the reference): the repeats order
+    # equal scores from that floor, which can change the page inside a
+    # tie run and its clustered count. One warming batch first, so the
+    # reference and the served pages both come from the learned plans.
+    engine.search_device_batch(coll, queries, topk=10, resident=True)
+    ref = {q: render_results(r, "json")[0] for q, r in zip(
+        queries, engine.search_device_batch(coll, queries, topk=10,
+                                            resident=True))}
+    loop = engine.get_resident_loop(coll)
+    srv = SearchHTTPServer(work / "cuda", port=0, device="cuda",
+                           colldb=colldb)
+    srv.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    out = {}
+    try:
+        http_clients(base, queries[:8], 4, coll.name)   # connections, threads warm
+        for n_clients in (4, 16):
+            g_stats.reset()
+            reset_counts()
+            b0 = (srv._batcher.batches, srv._batcher.batched_queries)
+            w0 = loop.waves_issued
+            wall, lat, pages = http_clients(base, queries, n_clients, coll.name)
+            kl = (msk.launches, fdk.launches_tail + fdk.launches_notail,
+                  msk.plain_calls + fdk.plain_calls)
+            nb = srv._batcher.batches - b0[0]
+            nq = srv._batcher.batched_queries - b0[1]
+            lats = g_stats.latencies
+            split = {name: lats[name].total_ms for name in (
+                "serve.search", "query.device_batch", "query.results_batch")
+                if name in lats}
+            errs = g_stats.counters.get("serve.device_error", 0)
+            for q in queries:
+                assert_pages_match(pages[q], ref[q], q)
+            assert kl[0] > 0 and kl[1] > 0 and kl[2] == 0, kl
+            assert errs == 0, errs
+            r = dict(clients=n_clients, qps=len(queries) / wall,
+                     p50_ms=statistics.median(lat), max_ms=max(lat),
+                     batches=nb, mean_batch=nq / nb, waves=loop.waves_issued
+                     - w0, k1_launches=kl[0], k2_launches=kl[1],
+                     span_ms=split)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                pwall = http_clients(base, queries, n_clients, coll.name)[0]
+                torch.cuda.synchronize()
+            prof_r = profile_fn(f"{n_clients} HTTP clients", prof, pwall)
+            r["device_idle"], r["device_busy_ms"] = (
+                prof_r[:2] if prof_r else (None, None))
+            r["profiled_wall_ms"] = pwall * 1e3
+            out[f"clients_{n_clients}"] = r
+            log(f"[serve] {n_clients} clients x {len(queries) // n_clients}"
+                f" over HTTP: {wall * 1e3:.1f} ms, {r['qps']:.2f} qps; per "
+                f"request p50 {r['p50_ms']:.2f} ms, max {r['max_ms']:.2f} "
+                f"ms; batcher {nb} batches (mean {r['mean_batch']:.2f} "
+                f"queries), loop waves {r['waves']}; K1 launches {kl[0]}, K2"
+                f" launches {kl[1]}, plain calls {kl[2]}, device errors "
+                f"{errs}; every page equals the in-process resident batch")
+            log(f"[serve]   wall split (sums over the pass): "
+                + ", ".join(f"{k} {v:.1f} ms" for k, v in split.items())
+                + (f"; device batch / serve.search "
+                   f"{split['query.device_batch'] / split['serve.search']:.1%}"
+                   if "query.device_batch" in split else ""))
+        # the result cache: a pass to fill it, then the 64 again: every
+        # page byte-identical, no kernel launched
+        coll.conf.result_cache_ttl = 60.0
+        filled = http_clients(base, queries, 4, coll.name)[2]
+        reset_counts()
+        hits0 = srv.stats.get("result_cache_hits", 0)
+        wall, lat, pages = http_clients(base, queries, 1, coll.name)
+        kl = (msk.launches, fdk.launches_tail + fdk.launches_notail)
+        assert all(pages[q] == filled[q] for q in queries)
+        assert kl == (0, 0), kl
+        assert srv.stats["result_cache_hits"] - hits0 == len(queries)
+        out["cached_pass_ms"] = wall * 1e3
+        out["cached_p50_ms"] = statistics.median(lat)
+        log(f"[serve] cached pass of {len(queries)}: {wall * 1e3:.1f} ms "
+            f"(p50 {out['cached_p50_ms']:.3f} ms), every page byte-identical"
+            f" to the filling pass, K1/K2 launches {kl}")
+        # a write: POST /inject, found by the next /search; a cached
+        # query misses after it (the generation moved)
+        import urllib.request
+        word = "zqxvservedword"
+        req = urllib.request.Request(
+            f"{base}/inject?c={coll.name}&u=http://served-fresh.example.com/",
+            data=(f"<html><title>{word}</title><body><p>{word}</p>"
+                  "</body></html>").encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert resp.status == 200
+        code, body = http_get(base, "/search", {"q": word,
+                                                 "c": coll.name})
+        assert code == 200 and json.loads(body)["totalMatches"] == 1, body
+        reset_counts()
+        hits0 = srv.stats["result_cache_hits"]
+        code, body = http_get(base, "/search", {"q": queries[0],
+                                                 "c": coll.name, "n": 10})
+        assert code == 200 and srv.stats["result_cache_hits"] == hits0
+        assert msk.launches + fdk.launches_tail + fdk.launches_notail > 0
+        log(f"[serve] POST /inject: {word!r} found by the next /search; a "
+            "cached query missed after the write and launched again")
+        # the guardrails: the 64 trip nothing; a fault trips and answers 500
+        coll.conf.result_cache_ttl = 0
+        srv.conf.checkify = True
+        g_stats.reset()
+        wall = http_clients(base, queries, 4, coll.name)[0]
+        assert not g_stats.counters.get("devcheck.trip"), g_stats.counters
+        with devcheck.inject("nan"):
+            code, body = http_get(base, "/search", {"q": queries[1],
+                                                    "c": coll.name})
+        assert code == 500 and "non-finite" in body, (code, body[:300])
+        assert g_stats.counters.get("devcheck.trip") == 1
+        assert g_stats.counters.get("serve.device_error") == 1
+        srv.conf.checkify = False
+        out["checkify_pass_ms"] = wall * 1e3
+        log(f"[serve] checkify on: the 64 in {wall * 1e3:.1f} ms tripped "
+            "nothing; an injected NaN tripped (devcheck.trip 1), was "
+            "counted as a device error and answered 500")
+    finally:
+        srv.stop()
+    out["k1_launches"] = out["clients_4"]["k1_launches"]
+    out["k2_launches"] = out["clients_4"]["k2_launches"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[serve] phase (5d) in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -373,8 +592,8 @@ def main() -> int:
         make_queries, rand_cube, wide_queries)
     from open_source_search_engine_tpu_torch.index.carry import \
         collection_from_arrays
-    from open_source_search_engine_tpu_torch.index.collection import \
-        Collection
+    from open_source_search_engine_tpu_torch.index.collection import (
+        Collection, CollectionDb)
     from open_source_search_engine_tpu_torch.query import (engine, packer,
                                                            scorer)
     from open_source_search_engine_tpu_torch.query import \
@@ -517,7 +736,10 @@ def main() -> int:
     work = ROOT / "build" / "chip_smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    coll = Collection("bench", work / "cuda", device="cuda")
+    # the node's collection registry, so the server of (5d) serves this
+    # same index
+    colldb = CollectionDb(work / "cuda", device="cuda")
+    coll = colldb.get("bench")
     # both routes score the kernel ranking, as bench.py measures it: no
     # PostQueryRerank, no site clustering (tie order decides clustering)
     coll.conf.pqr_enabled = False
@@ -1062,6 +1284,11 @@ def main() -> int:
     del di, fresh, scratch, after, during
     coll._device_index = None
 
+    served = serve_over_http(colldb, coll, queries, work, reset_counts,
+                             report_profile)
+    g_residency.reset()
+    coll._device_index = None
+
     # the route corpus: F1, FD and F2 each serve a query, on the card as
     # on the CPU
     saved = {k: os.environ.get(k) for k in ROUTE_ENV}
@@ -1133,6 +1360,7 @@ def main() -> int:
         "replaces": "open_source_search_engine_tpu/query/pallas_scores.py"
                     ":173",
         "launches": res_k1, "launches_one_shot_batch": k1_dev,
+        "launches_served": served["k1_launches"],
         "max_abs_err": max_err,
         "ms": k1d_ms, "parent_ms": k1d_par, "plain_ms": k1d_plain_ms,
         "bound_ms": k1d_b_ms,
@@ -1155,6 +1383,7 @@ def main() -> int:
         "replaces": "open_source_search_engine_tpu/query/pallas_scores.py"
                     ":226",
         "launches": res_k2, "launches_one_shot_batch": k2_launches,
+        "launches_served": served["k2_launches"],
         "launches_tail_notail": list(k2_split),
         "max_abs_err": k2_err, "ms": k2_ms, "parent_ms": k2_par,
         "plain_ms": k2_plain_ms,
@@ -1179,7 +1408,8 @@ def main() -> int:
                              if dev_busy_ms else None),
         "oracle_build_s": t_oracle,
         "device_build_peak_gib": build_peak / 2**30,
-        "device_build_spans_s": build_spans, "resident": resident}}
+        "device_build_spans_s": build_spans, "resident": resident,
+        "served": served}}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(smi)

@@ -1,12 +1,15 @@
-"""Command-line entry point (the reference's ``gb inject`` / ``gb search``
-verbs)::
+"""Command-line entry point (the reference's ``gb`` verbs)::
 
+    python -m open_source_search_engine_tpu_torch serve --dir ./data --port 8000
     python -m open_source_search_engine_tpu_torch inject --dir ./data URL [FILE]
     python -m open_source_search_engine_tpu_torch search --dir ./data "query"
 
-Both take ``--torch-device {cuda,cpu}`` (default ``cuda``): the device
-queries score on. ``inject`` dumps the collection after indexing, so a
-later ``search`` process reads it back.
+Each takes ``--torch-device {cuda,cpu}`` (default ``cuda``): the device
+queries score on. ``serve`` runs the node's HTTP server until SIGINT or
+SIGTERM, then stops it and saves every open collection (its runs, doc
+count, speller and conf), so a restart answers the same; the reference's
+autosave clock and daily merge are not carried. ``inject`` dumps the
+collection after indexing, so a later process reads it back.
 """
 
 from __future__ import annotations
@@ -24,6 +27,34 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="collection name (default main)")
     p.add_argument("--torch-device", choices=("cuda", "cpu"),
                    default="cuda", help="scoring device (default cuda)")
+
+
+def cmd_serve(args) -> int:
+    import signal
+    import threading
+
+    from .serve.server import SearchHTTPServer
+
+    srv = SearchHTTPServer(args.dir, host=args.host, port=args.port,
+                           device=args.torch_device)
+    srv.colldb.get(args.coll)   # open (or create) the default collection
+    srv.start()
+    stop = threading.Event()
+
+    def handler(signum, frame):
+        stop.set()
+
+    signal.signal(signal.SIGTERM, handler)
+    signal.signal(signal.SIGINT, handler)
+    print(json.dumps({"serving": f"http://{args.host}:{srv.port}/",
+                      "coll": args.coll, "dir": args.dir,
+                      "device": args.torch_device}), flush=True)
+    stop.wait()
+    srv.stop()
+    srv.colldb.save_all()
+    print(json.dumps({"stopped": True, "saved": sorted(srv.colldb.colls)}),
+          flush=True)
+    return 0
 
 
 def cmd_inject(args) -> int:
@@ -63,8 +94,16 @@ def cmd_search(args) -> int:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m open_source_search_engine_tpu_torch",
-        description="search engine on PyTorch/CUDA (flat query path)")
+        description="search engine on PyTorch/CUDA")
     sub = ap.add_subparsers(dest="cmd", required=True)
+
+    p = sub.add_parser("serve", help="run the node's HTTP server")
+    _add_common(p)
+    p.add_argument("--host", default="127.0.0.1",
+                   help="listen address (default 127.0.0.1)")
+    p.add_argument("--port", type=int, default=8000,
+                   help="listen port (default 8000; 0 = any free port)")
+    p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("inject", help="index one document")
     _add_common(p)

@@ -64,6 +64,8 @@ class MetaList:
     sections: list = field(default_factory=list)
     boiler_sections: list = field(default_factory=list)
     fields: dict = field(default_factory=dict)
+    #: the page's words: the speller's popularity counts follow them
+    words: list = field(default_factory=list)
 
 
 def doc_section_hashes(tdoc: TokenizedDoc) -> dict[int, int]:
@@ -294,7 +296,8 @@ def build_meta_list(url: str, content: str, *, is_html: bool = True,
                                          delbit),
         langid=langid, site=site,
         sections=sorted(set(sect_of.values())),
-        boiler_sections=sorted(boiler), fields=fields)
+        boiler_sections=sorted(boiler), fields=fields,
+        words=list(tdoc.words))
 
 
 def _write(coll: Collection, metas: list[MetaList]) -> None:
@@ -329,6 +332,8 @@ def index_document(coll: Collection, url: str, content: str, *,
     _write(coll, [ml])
     coll.sectiondb.add_page_sections(ml.site, u.full, ml.sections)
     coll.titlerec_cache.pop(ml.docid, None)
+    if ml.words:
+        coll.speller.add_doc_words(ml.words)
     if old is None:
         coll.doc_added()
     log.debug("indexed %s docid=%d keys=%d", url, ml.docid,
@@ -371,6 +376,8 @@ def index_batch(coll: Collection, docs, *, is_html: bool = True,
         for (i, url, content, (u, *_)), ml in zip(work, metas):
             coll.sectiondb.add_page_sections(ml.site, u.full, ml.sections)
             coll.titlerec_cache.pop(ml.docid, None)
+            if ml.words:
+                coll.speller.add_doc_words(ml.words)
             coll.doc_added()
     for i, url, content in leftovers:
         out[i] = index_document(coll, url, content, is_html=is_html,
@@ -413,6 +420,8 @@ def remove_document(coll: Collection, url: str,
     coll.sectiondb.remove_page_sections(ml.site, u.full,
                                         rec.get("sections") or [])
     coll.titlerec_cache.pop(ml.docid, None)
+    if ml.words:
+        coll.speller.remove_doc_words(ml.words)
     if _count:
         coll.doc_removed()
     return ml

@@ -182,3 +182,29 @@ def assert_tie_run_parity(got, want, label, rtol: float = 1e-5) -> None:
             assert set(gd[i:j].tolist()) == set(wd[i:j].tolist()), \
                 (label, i, j)
         i = j
+
+
+def assert_pages_match(got: str, want: str, label) -> None:
+    """Two ``/search`` JSON bodies (``render_results(..., "json")``):
+    ``query``, ``totalMatches``, ``clustered``, ``suggestion`` and
+    ``facets`` exact, scores within rtol=1e-5 and docids by complete tie
+    runs (:func:`assert_tie_run_parity`), and each result's url, title,
+    snippet and site exact, matched by docid (tie order inside a run is
+    free; a docid absent from ``want`` can only sit in a run the page
+    cut)."""
+    import json
+    a, b = json.loads(got), json.loads(want)
+    for k in ("query", "totalMatches", "clustered", "suggestion",
+              "facets"):
+        assert a[k] == b[k], (label, k, a[k], b[k])
+    ra, rb = a["results"], b["results"]
+    assert_tie_run_parity(
+        (np.array([r["docId"] for r in ra], np.uint64),
+         np.array([r["score"] for r in ra]), a["totalMatches"]),
+        (np.array([r["docId"] for r in rb], np.uint64),
+         np.array([r["score"] for r in rb]), b["totalMatches"]), label)
+    by_docid = {r["docId"]: r for r in rb}
+    for r in ra:
+        if r["docId"] in by_docid:
+            for f in ("url", "title", "snippet", "site"):
+                assert r[f] == by_docid[r["docId"]][f], (label, f, r)

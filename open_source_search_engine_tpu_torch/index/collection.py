@@ -1,24 +1,33 @@
-"""Collection — one searchable corpus: its Rdbs, its conf, and the
-device its queries score on.
+"""Collection — one searchable corpus: its Rdbs, its conf, its speller
+dictionary and the device its queries score on; :class:`CollectionDb`,
+the registry of a node's collections.
 
 Reference: ``Collectiondb.cpp/h`` (``Collectiondb.h:39``). This copy
 owns posdb (positional index, dataless 18-byte keys), titledb (doc
 records), clusterdb (site/lang meta) and sectiondb (boilerplate votes),
-plus the doc counter ranking needs (``Posdb.cpp:1225`` numDocsInColl).
+plus the doc counter ranking needs (``Posdb.cpp:1225`` numDocsInColl)
+and the speller's word popularity. Not carried: linkdb, tagdb, fielddb
+and catdb, and the memtable save of ``save()`` (rdblite has no journal
+yet, so ``save()`` dumps).
 """
 
 from __future__ import annotations
 
 import json
+import threading
 from collections import OrderedDict
 from pathlib import Path
 
 import torch
 
 from ..device import resolve_device
+from ..query.speller import Speller
+from ..utils.log import get_logger
 from ..utils.parms import CollectionConf
 from . import clusterdb, posdb, rdblite, titledb
 from .sectiondb import Sectiondb
+
+log = get_logger("collection")
 
 
 class TermlistCache:
@@ -67,12 +76,21 @@ class Collection:
         self.dir = Path(base_dir) / "coll" / name
         self.dir.mkdir(parents=True, exist_ok=True)
         self.conf = conf or CollectionConf(name)
+        # per-collection config persists beside the Rdbs (coll.conf)
+        self._conf_path = self.dir / "coll.conf"
+        if conf is None and self._conf_path.exists():
+            try:
+                self.conf.load(self._conf_path)
+            except (OSError, ValueError) as exc:  # defaults win
+                log.warning("%s: coll.conf unreadable (%s); using "
+                            "defaults", name, exc)
         self.posdb = rdblite.Rdb("posdb", self.dir, posdb.KEY_DTYPE)
         self.titledb = rdblite.Rdb("titledb", self.dir, titledb.KEY_DTYPE,
                                    has_data=True)
         self.clusterdb = rdblite.Rdb("clusterdb", self.dir,
                                      clusterdb.KEY_DTYPE)
         self.sectiondb = Sectiondb(self.dir)
+        self.speller = Speller(self.dir)
         self._stats_path = self.dir / "collstats.json"
         self.num_docs = 0
         if self._stats_path.exists():
@@ -95,8 +113,57 @@ class Collection:
         self.num_docs = max(0, self.num_docs - n)
 
     def dump_all(self) -> None:
-        """Dump every memtable to a run and persist the doc count: what
-        a later process opening the same directory reads back."""
+        """Dump every memtable to a run and persist the doc count and the
+        speller's dictionary: what a later process opening the same
+        directory reads back."""
         for db in self.rdbs().values():
             db.dump()
+        self.speller.save()
         self._stats_path.write_text(json.dumps({"num_docs": self.num_docs}))
+
+    def save(self) -> None:
+        """``dump_all`` plus the collection's conf."""
+        self.dump_all()
+        self.conf.save(self._conf_path)
+
+
+class CollectionDb:
+    """Registry of a node's collections (reference ``g_collectiondb``),
+    each under ``base_dir/coll/<name>`` and scoring on ``device`` (see
+    :class:`Collection`)."""
+
+    def __init__(self, base_dir: str | Path,
+                 device: str | torch.device | None = None):
+        self.base_dir = Path(base_dir)
+        self.device = resolve_device(device)
+        self.colls: dict[str, Collection] = {}
+        self._lock = threading.Lock()  # lazy open is check-then-create
+
+    def get(self, name: str = "main", create: bool = True) -> Collection:
+        """The open collection ``name``, opened (or created) on first
+        use. With ``create=False`` an unknown name raises KeyError and
+        nothing is written to disk."""
+        with self._lock:
+            if name not in self.colls:
+                if not create and not (self.base_dir / "coll"
+                                       / name).exists():
+                    raise KeyError(f"no such collection: {name}")
+                self.colls[name] = Collection(name, self.base_dir,
+                                              device=self.device)
+            return self.colls[name]
+
+    def drop(self, name: str) -> Collection | None:
+        """Unregister a collection (its directory is left as it is)."""
+        with self._lock:
+            return self.colls.pop(name, None)
+
+    def names(self) -> list[str]:
+        disk = {p.name for p in (self.base_dir / "coll").glob("*")
+                if p.is_dir()}
+        return sorted(disk | set(self.colls))
+
+    def save_all(self) -> None:
+        with self._lock:
+            colls = list(self.colls.values())
+        for c in colls:
+            c.save()

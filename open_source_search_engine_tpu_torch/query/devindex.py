@@ -35,9 +35,19 @@ result rows into a pinned host buffer of the batch's own, and records an
 event; ``collect_batch`` waits on that event only, so a loop with two
 batches in flight collects the first without waiting for the second.
 
-Not carried in this slice: the base-column disk cache, the plan cache,
-the telemetry and guard planes, and the ``gbmin:``/``gbmax:``/
-``gbsortby:`` columns (queries using them raise, as the packer's do).
+Plans: ``issue_batch`` keeps each query's ResidentPlan on the cache
+plane (``devindex.plan.<collection>``), keyed on (raw, lang) and
+generation-keyed on the posdb version, so a repeated query skips the
+host planning pass until a write. An escalation widens a cached plan's
+``kappa_min``/``k2_min`` in place, so a hot query's learned floor
+persists, as in the reference.
+
+Guardrails (``devcheck``, opt-in): the top-k invariants on every emitted
+wave row, and cube sanity on the resident cube before each FD wave.
+
+Not carried in this slice: the base-column disk cache, the telemetry
+plane, and the ``gbmin:``/``gbmax:``/``gbsortby:`` columns (queries
+using them raise, as the packer's do).
 Every tensor lives on ``self.device`` (the collection's device unless
 given); the wrappers of K1 and K2 pick the kernel or its plain version
 by that device.
@@ -53,6 +63,7 @@ import numpy as np
 import torch
 
 from ..build import devbuild
+from ..cache import g_cacheplane
 from ..device import resolve_device
 from ..index import clusterdb as clusterdb_mod
 from ..index import posdb
@@ -60,7 +71,7 @@ from ..index.collection import Collection
 from ..index.rdblite import merge_batches
 from ..utils import trace
 from ..utils.log import get_logger
-from . import fd_scores_kernel, weights
+from . import devcheck, fd_scores_kernel, weights
 from .compiler import SUB_SYNONYM, QueryPlan, compile_query
 from .min_scores_kernel import BIG, MAX_PAIR_SPAN
 from .packer import (IMPACT_SCALE, MAX_POSITIONS, T_FLOOR, _bucket, _pad1,
@@ -417,6 +428,15 @@ class DeviceIndex:
         self.escalations = 0      # pruning misses rerun wider
         #: queries first routed to F1, FD and F2 (reruns not counted)
         self.route_counts = {"f1": 0, "fd": 0, "f2": 0}
+        #: resident-plan cache (the termlist-cache role, RdbCache): the
+        #: host planning pass repeats byte-identically for a repeated
+        #: query until a write moves posdb. The reference keys on the
+        #: fielddb version too; the port has no fielddb yet.
+        posdb_rdb = coll.posdb
+        self._plan_cache = g_cacheplane.register(
+            f"devindex.plan.{coll.name}", ttl_s=300.0, max_entries=2048,
+            gen_fn=lambda: posdb_rdb.version,
+            desc="resident query plans (termlist-cache role)")
         self.refresh()
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
@@ -1112,9 +1132,19 @@ class DeviceIndex:
         with the copy of their result rows to the host: nothing waits
         for the device."""
         with trace.span("devindex.plan", queries=len(queries)):
-            plans = [self.plan(q if isinstance(q, QueryPlan)
-                               else compile_query(q, lang))
-                     for q in queries]
+            # the generation is read before the plans build: a write
+            # landing meanwhile leaves the stored entries dead, never a
+            # pre-write plan passing as fresh
+            pgen = self._plan_cache.current_gen()
+            plans = []
+            for q in queries:
+                qp = q if isinstance(q, QueryPlan) else compile_query(q, lang)
+                ck = (qp.raw, qp.lang)
+                hit, p = self._plan_cache.lookup(ck, gen=pgen)
+                if not hit:
+                    p = self.plan(qp)
+                    self._plan_cache.put(ck, p, gen=pgen)
+                plans.append(p)
         live = [i for i, p in enumerate(plans) if p.matchable]
         results = [(np.empty(0, np.uint64), np.empty(0, np.float32), 0)
                    ] * len(plans)
@@ -1280,6 +1310,13 @@ class DeviceIndex:
                         if kind == "f2" and f2_nsel < self.D_cap:
                             f2_next.append(i)
                             continue
+                    if devcheck.enabled():
+                        # finite, sorted, in bounds; apply_fault is the
+                        # injector of the tests and the chip smoke
+                        idx, scores = devcheck.apply_fault(
+                            idx, scores, self.n_docs)
+                        devcheck.check_topk(scores, idx, self.n_docs,
+                                            route=kind)
                     self._emit(results, i, nm, idx, scores)
             self.escalations += len(f1_next) + len(f2_next)
             f2_nsel = min(f2_nsel * 4, self.D_cap)
@@ -1652,9 +1689,15 @@ class DeviceIndex:
             # only the resident quarters
             tail = self._scatter_postings(plans, T, B * T * P * D)[
                 :-1].view(B, T, P, D)
+        d_cube = self.d_cube
+        if devcheck.enabled():
+            # the resident cube before the wave reads it: nonzero
+            # payloads must decode to a legal hashgroup
+            d_cube = devcheck.apply_cube_fault(d_cube)
+            devcheck.check_cube(d_cube, route="fd")
         ms, bits = fd_scores_kernel.fd_scores(
             self._put(cs.reshape(B, T * 4)), self._put(sy.reshape(B, T * 4)),
-            self.d_cube, self.d_dead, freqw, counts, tail)
+            d_cube, self.d_dead, freqw, counts, tail)
         t_ax = torch.arange(T, dtype=torch.int32, device=dev)
         present = ((bits[:, None, :] >> t_ax[None, :, None]) & 1) > 0
         match = (match_gates(present, required, negative, table,

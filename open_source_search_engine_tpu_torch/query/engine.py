@@ -16,11 +16,9 @@ merges the top-k across passes.
 The device route serves through the collection's resident loop
 (``search_device_batch(resident=True)``, owned by the tenant plane) and
 rebuilds its base in the background after a dump
-(:func:`get_device_index`).
-
-Not carried yet: the speller (``suggestion`` is always None), the result
-cache and the compiled-plan cache (``_compile_cached``: the cache
-plane).
+(:func:`get_device_index`). Compiled plans come from the cache plane
+(:func:`_compile_cached`); a query that matches nothing carries the
+speller's "did you mean" (:func:`_suggest`).
 """
 
 from __future__ import annotations
@@ -35,6 +33,7 @@ import numpy as np
 import torch
 
 from ..build import docproc
+from ..cache import g_cacheplane
 from ..index import clusterdb as cdb
 from ..index import titledb
 from ..index.collection import Collection
@@ -42,6 +41,7 @@ from ..utils import deadline as deadline_mod
 from ..utils import threads as _threads
 from ..utils import trace
 from ..utils.log import get_logger
+from ..utils.stats import g_stats
 from . import summary as summary_mod
 from .compiler import QueryPlan, compile_query
 from .devindex import DeviceIndex, base_fingerprint
@@ -62,6 +62,30 @@ PQR_SCAN = 48
 #: facet counts come from the top FACET_SAMPLE matched docs
 FACET_SAMPLE = 256
 
+#: compiled-plan cache: compile_query is pure in (raw, lang) and a
+#: QueryPlan is not changed after compile, so plans never invalidate: no
+#: generation, just TTL/LRU bounds
+_compiled_cache = g_cacheplane.register(
+    "query.compiled", ttl_s=600.0, max_entries=4096,
+    desc="compiled QueryPlans, pure in (raw, lang)")
+
+
+def _compile_cached(q: str, lang: int) -> QueryPlan:
+    ck = (q, lang)
+    hit, plan = _compiled_cache.lookup(ck)
+    if not hit:
+        plan = compile_query(q, lang=lang)
+        _compiled_cache.put(ck, plan)
+    return plan
+
+
+def _suggest(coll: Collection, plan: QueryPlan) -> str | None:
+    """Zero-result fallback: the speller's "did you mean" over the
+    query's scored words (Msg40's spell-check integration)."""
+    words = [g.display for g in plan.scored_groups
+             if " " not in g.display and ":" not in g.display]
+    return coll.speller.suggest_query(words) if words else None
+
 
 @dataclass
 class Result:
@@ -79,12 +103,16 @@ class SearchResults:
     total_matches: int
     results: list[Result] = field(default_factory=list)
     clustered: int = 0  # results hidden by site clustering (Msg51)
-    suggestion: str | None = None  # "did you mean" (no speller yet)
+    suggestion: str | None = None  # "did you mean" (Speller)
     #: gbfacet: results — field → [(value, count)]
     facets: dict = field(default_factory=dict)
     #: scoring passes run (one min-score launch each), escalations
     #: included
     passes: int = 0
+    #: device route: the posdb version the answering index was built at
+    #: (behind the posdb while a background rebuild runs); None on the
+    #: flat path, which reads the Rdbs as they are
+    generation: int | None = None
 
 
 def build_results(get_doc, docids, scores, plan: QueryPlan, *,
@@ -222,7 +250,7 @@ def search(coll: Collection, q: str | QueryPlan, *, topk: int = 10,
            offset: int = 0) -> SearchResults:
     """Execute a query against one collection, scoring on
     ``coll.device``. ``offset`` = deep-paging start row."""
-    plan = q if isinstance(q, QueryPlan) else compile_query(q, lang=lang)
+    plan = q if isinstance(q, QueryPlan) else _compile_cached(q, lang)
 
     def get_doc(d):
         return docproc.get_document(coll, docid=d)
@@ -255,7 +283,8 @@ def search(coll: Collection, q: str | QueryPlan, *, topk: int = 10,
             doc_off += pq.n_docs
         if not all_docids:
             return SearchResults(query=plan.raw, total_matches=0,
-                                 passes=passes)
+                                 passes=passes,
+                                 suggestion=_suggest(coll, plan))
         docids = np.concatenate(all_docids)
         scores = np.concatenate(all_scores)
         order = np.argsort(-scores, kind="stable")
@@ -274,6 +303,7 @@ def search(coll: Collection, q: str | QueryPlan, *, topk: int = 10,
     return SearchResults(
         query=plan.raw, total_matches=total, results=page,
         clustered=clustered, passes=passes,
+        suggestion=_suggest(coll, plan) if total == 0 else None,
         facets=compute_facets(plan, docids[order], get_doc))
 
 
@@ -391,8 +421,9 @@ def search_device_batch(coll: Collection, queries, *, topk: int = 10,
     waiting here. ``results_lock``, when given, is held only around the
     page build (titledb reads mutate rdblite state), never around the
     device wait."""
-    plans = [q if isinstance(q, QueryPlan) else compile_query(q, lang=lang)
+    plans = [q if isinstance(q, QueryPlan) else _compile_cached(q, lang)
              for q in queries]
+    g_stats.count("query", len(plans))
     ktot = max((topk + offset) * 2, 64)
     if deadline_mod.check_abandon("device.dispatch"):
         # the deadline passed while this batch queued: abandon before
@@ -401,14 +432,15 @@ def search_device_batch(coll: Collection, queries, *, topk: int = 10,
             "deadline exceeded before device dispatch")
     if resident:
         loop = get_resident_loop(coll, deadline=deadline_mod.current())
-        with trace.span("query.device_batch", queries=len(plans)):
+        with trace.timed_span("query.device_batch", queries=len(plans),
+                              resident=True):
             ticket = loop.submit(plans, topk=ktot, lang=lang,
                                  deadline=deadline_mod.current())
             raw = ticket.wait()
         di = ticket.di  # the index the wave ran against
     else:
         di = get_device_index(coll)
-        with trace.span("query.device_batch", queries=len(plans)):
+        with trace.timed_span("query.device_batch", queries=len(plans)):
             raw = di.search_batch(plans, topk=ktot, lang=lang)
 
     # one titlerec memo for the whole batch
@@ -425,7 +457,8 @@ def search_device_batch(coll: Collection, queries, *, topk: int = 10,
     out = []
     lock_ctx = results_lock if results_lock is not None \
         else contextlib.nullcontext()
-    with lock_ctx, trace.span("query.results_batch", queries=len(plans)):
+    t_res = time.perf_counter()
+    with lock_ctx:
         for plan, (docids, scores, n_matched) in zip(plans, raw):
             results, clustered = build_results(
                 get_doc, docids, scores, plan,
@@ -439,7 +472,10 @@ def search_device_batch(coll: Collection, queries, *, topk: int = 10,
             out.append(SearchResults(
                 query=plan.raw, total_matches=n_matched, results=page,
                 clustered=clustered,
-                facets=compute_facets(plan, docids, get_doc)))
+                suggestion=_suggest(coll, plan) if n_matched == 0 else None,
+                facets=compute_facets(plan, docids, get_doc),
+                generation=di._built_version))
+    trace.record("query.results_batch", t_res, queries=len(out))
     return out
 
 

@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from ..index.posdb import HASHGROUP_END, HASHGROUP_INLINKTEXT
-from . import cuda_build, weights
+from . import cuda_build, devcheck, weights
 from .packer import _HG_SHIFT, _DEN_SHIFT, _SPAM_SHIFT, _SYN_SHIFT
 
 QDIST = 2.0  # default query-distance (Posdb.cpp:6886)
@@ -202,8 +202,12 @@ def min_scores_fused(cube: torch.Tensor, freq_weight: torch.Tensor,
     scatter's validity, when given; else ``cube != 0``). A CUDA cube makes
     one launch of the kernel on the current stream, whatever B; any other
     device, a shape or type the kernel does not take, or a refused launch
-    raises."""
+    raises. With the device guardrails on (``devcheck``), the cube's
+    payloads are checked first."""
     global launches
+    if devcheck.enabled():
+        cube = devcheck.apply_cube_fault(cube)
+        devcheck.check_cube(cube, route="k1")
     batched = cube.dim() == 4
     if cube.device.type == "cpu":
         pv = cube != 0 if pvalid is None else pvalid

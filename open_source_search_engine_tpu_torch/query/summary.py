@@ -176,3 +176,19 @@ def _make_summary(text: str, query_words: list[str], *,
         parts.append(frag)
         used += len(frag)
     return " ".join(parts)[: max_chars + 40]
+
+
+def highlight(text: str, query_words: list[str],
+              pre: str = "<b>", post: str = "</b>") -> str:
+    """Wrap query-word matches (``Highlight.cpp`` front-tag/back-tag)."""
+    qset = {w.lower() for w in query_words if w}
+    if not qset:
+        return text
+    out, last = [], 0
+    for m in _WORD_RE.finditer(text):
+        if m.group(0).lower() in qset:
+            out.append(text[last:m.start()])
+            out.append(pre + m.group(0) + post)
+            last = m.end()
+    out.append(text[last:])
+    return "".join(out)

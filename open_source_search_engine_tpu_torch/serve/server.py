@@ -1,0 +1,1251 @@
+"""HTTP front end — search, cached pages, injection, admin.
+
+Port of ``open_source_search_engine_tpu/serve/server.py`` (reference
+``HttpServer.cpp`` + the ``Pages.cpp`` page table: ``PageResults.cpp``,
+``PageGet.cpp``, ``PageInject.cpp``/``PageAddUrl.cpp``, the admin
+pages). A stdlib threading server; the accept/parse plane is not the
+bottleneck, queries are.
+
+``/search`` with ``serve_device`` on (the default) goes through
+:class:`QueryBatcher`: concurrent requests coalesce into one
+``engine.search_device_batch(..., resident=True)`` call, which the
+collection's ResidentLoop serves in waves on the collection's device
+(K1 and K2 on the card). In front of it sit autoban, the admission gate
+(``serve/admission.py``) and the generation-keyed result cache on the
+cache plane (``cache/plane.py``).
+
+Endpoints (the reference's query-string names: ``q``, ``n``, ``s``,
+``c``, ``format``):
+
+* ``GET /search?q=...&n=10&c=main&format=json|xml|csv|html``
+* ``GET /get?d=<docid>&q=...`` — cached page, query terms highlighted
+* ``GET|POST /inject?u=<url>`` (body = content), ``/delete?u=<url>``
+* ``GET /addurl?u=<url>`` — 503: no spider runs in this package
+* ``GET /metrics`` and ``/admin``, ``/admin/stats``, ``/admin/mem``,
+  ``/admin/cache``, ``/admin/parms``, ``/admin/admission``,
+  ``/admin/tenants``, ``/admin/traces``
+* ``GET /`` — a minimal search form
+
+Departures from the reference:
+
+* **No host fallback.** The reference answers a failed device batch
+  from ``engine.search``; that hides the device, so here a failed batch
+  answers 500 with the error and counts ``serve.device_error``.
+  ``QueueFull`` and ``DeadlineExceeded`` still take the shed and stale
+  ladders.
+* **No pre-write page in the result cache.** A page answered by a
+  device index behind the request's posdb version (the old index
+  serving during a background rebuild) is served but not cached; the
+  reference caches it under the new version until its TTL ends.
+* **A listen backlog of 128** (:class:`NodeHTTPServer`), not
+  socketserver's 5: with 5, a burst of concurrent new connections has
+  its SYNs dropped and those clients wait a second to retry.
+* **Left out, each answering 501 with the ROADMAP item that carries
+  it** (:data:`NOT_PORTED`): ``/crawlbot`` and the spider, the
+  telemetry pages (``/admin/jit``, ``/admin/hbm``, ``/admin/device``,
+  ``/admin/profiler``, ``/admin/graph``) with the statsdb sample ring
+  (its SLO evaluation is kept, as the server's SLO tick), and
+  the fleet pages (``/admin/hosts``, ``/admin/transport``,
+  ``/admin/perf``). The ``sharded=`` and ``cluster=`` arguments raise
+  NotImplementedError (the mesh), and ``/metrics`` has no devwatch,
+  jitwatch or transport families.
+"""
+
+from __future__ import annotations
+
+import html as html_mod
+import json
+import os
+import threading
+import time
+import urllib.parse
+from concurrent.futures import ThreadPoolExecutor
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+
+from ..build import docproc
+from ..cache import g_cacheplane
+from ..index.collection import CollectionDb
+from ..query import devcheck, engine
+from ..query.summary import highlight
+from ..utils import deadline as deadline_mod
+from ..utils import parms as parms_mod
+from ..utils import priority as priority_mod
+from ..utils import threads
+from ..utils import trace as trace_mod
+from ..utils.lockcheck import make_lock, make_rlock
+from ..utils.log import get_logger
+from ..utils.membudget import g_membudget
+from ..utils.nice import NicenessGate
+from ..utils.parms import Conf
+from ..utils.slo import g_slo
+from ..utils.stats import _bucket_bounds, g_stats, merge_wire
+from ..utils.trace import g_tracer
+from ..utils.users import Users
+from . import admission as admission_mod
+from .tenancy import g_residency
+
+log = get_logger("http")
+
+#: path → the ROADMAP queue item that carries it; each answers 501
+NOT_PORTED = {
+    "/crawlbot": "queue item 12 (the spider and crawlbot)",
+    "/admin/jit": "queue item 4 (telemetry: jitwatch)",
+    "/admin/hbm": "queue item 4 (telemetry: devwatch)",
+    "/admin/device": "queue item 4 (telemetry: devwatch)",
+    "/admin/profiler": "queue item 4 (telemetry: the sampling profiler)",
+    "/admin/graph": "queue item 4 (telemetry: the statsdb sampler)",
+    "/admin/hosts": "queue item 9 (the mesh: the shard map)",
+    "/admin/transport": "queue item 9 (the mesh: the transport plane)",
+    "/admin/perf": "queue item 9 (the mesh: the fleet view)",
+}
+
+
+class QueryBatcher:
+    """Msg40 micro-batching: concurrent /search requests coalesce into one
+    device dispatch, so the plane's ceiling is not 1/latency qps.
+
+    Requests enqueue and wait; a single worker drains the queue in
+    same-key batches of at most MAX_B and hands each to a pool of two,
+    so batch N's page build overlaps batch N+1's device waves. An error
+    reaches every waiter of the failing batch."""
+
+    MAX_B = 64
+    WINDOW_S = 0.002  # brief collect window while a wave is in flight
+    #: bounded admission: an overload burst fails fast with QueueFull
+    #: (the serve edge sheds stale-or-503) instead of growing host memory
+    MAX_QUEUE = 512
+    #: per-waiter footprint charged to the membudget "serve" label
+    QUEUE_ENTRY_COST = 4096
+
+    def __init__(self, run_batch):
+        #: run_batch((coll_name, topk, offset), [queries]) → [results]
+        self._run_batch = run_batch
+        self._cv = threading.Condition()
+        #: (key, query, holder, parent span, deadline, tier, tenant)
+        self._queue: list[tuple] = []
+        self._inflight = 0  # batches currently dispatched
+        self._alive = True
+        #: batches dispatched and queries in them (chip smoke reads both)
+        self.batches = 0
+        self.batched_queries = 0
+        self._pool = ThreadPoolExecutor(2)
+        self._thread = threads.spawn("query-batcher", self._loop)
+
+    @property
+    def alive(self) -> bool:
+        return self._alive
+
+    def stop(self) -> None:
+        """Stop the worker; queued waiters fail fast."""
+        with self._cv:
+            self._alive = False
+            for e in self._queue:
+                e[2]["err"] = RuntimeError("query batcher stopped")
+            self._queue.clear()
+            self._gauge_locked()
+            self._cv.notify_all()
+        self._pool.shutdown(wait=False)
+
+    def _gauge_locked(self) -> None:
+        g_membudget.set_gauge(
+            "serve", self, len(self._queue) * self.QUEUE_ENTRY_COST)
+
+    def search(self, key: tuple, q: str, timeout: float = 60.0):
+        holder: dict = {}
+        # the wait ends at its own timeout or the query's deadline,
+        # whichever is sooner
+        dl = deadline_mod.current()
+        deadline = deadline_mod.Deadline.after(timeout)
+        if dl is not None and dl.at < deadline.at:
+            deadline = dl
+        with self._cv:
+            if len(self._queue) >= self.MAX_QUEUE:
+                g_stats.count("admission.queue_full")
+                raise priority_mod.QueueFull("query batcher queue full")
+            self._queue.append((key, q, holder, trace_mod.current_span(), dl,
+                                priority_mod.current_tier(),
+                                priority_mod.current_tenant()))
+            self._gauge_locked()
+            self._cv.notify_all()
+            while "res" not in holder and "err" not in holder:
+                left = deadline.remaining()
+                if left <= 0:
+                    if dl is not None and dl.expired():
+                        raise deadline_mod.DeadlineExceeded(
+                            "query deadline exceeded in batcher")
+                    raise TimeoutError("query batcher timeout")
+                self._cv.wait(timeout=left)
+        if "err" in holder:
+            raise holder["err"]
+        return holder["res"]
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while self._alive and not self._queue:
+                    self._cv.wait()
+                if not self._alive:
+                    return
+                # fill-or-flush: a batch in flight buys a collect window
+                # (up to WINDOW_S to fill a same-key batch); an idle
+                # device launches at once with whatever is queued
+                if self._inflight > 0:
+                    w = deadline_mod.Deadline.after(self.WINDOW_S)
+                    while (self._alive and self._inflight > 0
+                           and len(self._queue) < self.MAX_B):
+                        left = w.remaining()
+                        if left <= 0:
+                            break
+                        self._cv.wait(timeout=left)
+                else:
+                    g_stats.count("admission.wave.idle_flush")
+                if not self._alive:
+                    return
+                if not self._queue:  # stop() drained it mid-window
+                    continue
+                key = self._queue[0][0]
+                batch = [e for e in self._queue if e[0] == key][: self.MAX_B]
+                for e in batch:
+                    self._queue.remove(e)
+                self._gauge_locked()
+                self._inflight += 1
+                self.batches += 1
+                self.batched_queries += len(batch)
+            try:
+                self._pool.submit(self._run_one, key, batch)
+            except RuntimeError as exc:  # pool shut down by stop()
+                with self._cv:
+                    self._inflight -= 1
+                    for e in batch:
+                        e[2]["err"] = exc
+                    self._cv.notify_all()
+                return
+
+    def _run_one(self, key, batch) -> None:
+        try:
+            self._run_one_inner(key, batch)
+        finally:
+            with self._cv:
+                self._inflight -= 1
+                self._cv.notify_all()  # wake the fill-or-flush window
+
+    def _run_one_inner(self, key, batch) -> None:
+        try:
+            # a pool thread has an empty contextvars context: re-attach
+            # the first traced waiter's span, and mark the other waiters'
+            # traces with a "coalesced" interval
+            parents = [e[3] for e in batch if e[3] is not None]
+            # the coalesced dispatch runs under the LONGEST rider budget
+            # (a short-deadline rider must not abandon the others' wave)
+            # and the HIGHEST rider tier; riders of one key share a
+            # collection, so a tenant
+            dls = [e[4] for e in batch if e[4] is not None]
+            dl = max(dls, key=lambda d: d.at) if dls else None
+            tiers = [e[5] for e in batch if e[5] is not None]
+            tier = (min(tiers, key=priority_mod.TIERS.index)
+                    if tiers else None)
+            tenants = [e[6] for e in batch if e[6] is not None]
+            t0 = time.perf_counter()
+            with trace_mod.attach(parents[0] if parents else None), \
+                    deadline_mod.bind(dl), \
+                    priority_mod.bind_tier(tier), \
+                    priority_mod.bind_tenant(tenants[0] if tenants
+                                             else None):
+                res = self._run_batch(key, [e[1] for e in batch])
+            for p in parents[1:]:
+                p.record("query.device_batch", t0, coalesced=True,
+                         batch=len(batch))
+            with self._cv:
+                for e, r in zip(batch, res):
+                    e[2]["res"] = r
+                self._cv.notify_all()
+        except Exception as exc:  # noqa: BLE001 — waiters must wake
+            with self._cv:
+                for e in batch:
+                    e[2]["err"] = exc
+                self._cv.notify_all()
+
+
+class NodeHTTPServer(ThreadingHTTPServer):
+    """The listener. socketserver's default backlog of 5 (the
+    reference's) drops the SYNs of a burst of new connections once the
+    accept queue holds 6, and each such client retries only after a
+    second; the backlog here holds a full batch of them."""
+
+    request_queue_size = 128
+
+
+def _xml_escape(s: str) -> str:
+    return html_mod.escape(s, quote=True)
+
+
+def render_results(res: engine.SearchResults, fmt: str,
+                   trace_id: str | None = None) -> tuple[str, str]:
+    """SERP rendering (PageResults.cpp HTML/XML/JSON/CSV). ``trace_id``
+    (``debug=1`` requests) is echoed in the body so the query can be
+    looked up on ``/admin/traces``."""
+    if fmt == "json":
+        payload = {
+            "query": res.query,
+            "totalMatches": res.total_matches,
+            "clustered": res.clustered,
+            "suggestion": res.suggestion,
+            "facets": {f: [[v, c] for v, c in pairs]
+                       for f, pairs in (res.facets or {}).items()},
+            "results": [
+                {"docId": r.docid, "score": r.score, "url": r.url,
+                 "title": r.title, "snippet": r.snippet, "site": r.site}
+                for r in res.results
+            ],
+        }
+        if trace_id:
+            payload["traceId"] = trace_id
+        return json.dumps(payload), "application/json"
+    if fmt == "xml":
+        rows = "".join(
+            f"<result><docId>{r.docid}</docId>"
+            f"<score>{r.score}</score>"
+            f"<url>{_xml_escape(r.url)}</url>"
+            f"<title>{_xml_escape(r.title)}</title>"
+            f"<snippet>{_xml_escape(r.snippet)}</snippet></result>"
+            for r in res.results)
+        tid = (f"<traceId>{_xml_escape(trace_id)}</traceId>"
+               if trace_id else "")
+        return (f'<?xml version="1.0" encoding="UTF-8"?>'
+                f"<response><query>{_xml_escape(res.query)}</query>"
+                f"<totalMatches>{res.total_matches}</totalMatches>"
+                f"{tid}{rows}</response>", "text/xml")
+    if fmt == "csv":
+        lines = ["docid,score,url,title"]
+        for r in res.results:
+            t = r.title.replace('"', '""')
+            lines.append(f'{r.docid},{r.score},"{r.url}","{t}"')
+        return "\n".join(lines), "text/csv"
+    items = "".join(
+        f'<li><a href="{html_mod.escape(r.url)}">'
+        f"{html_mod.escape(r.title) or html_mod.escape(r.url)}</a>"
+        f"<br><small>{html_mod.escape(r.snippet)}</small>"
+        f"<br><code>{html_mod.escape(r.url)}</code> "
+        f"<i>{r.score:.1f}</i></li>"
+        for r in res.results)
+    tid = (f'<p><small>trace <a href="/admin/traces?id='
+           f'{html_mod.escape(trace_id)}">{html_mod.escape(trace_id)}'
+           f"</a></small></p>" if trace_id else "")
+    return (f"<html><head><title>{html_mod.escape(res.query)} - search"
+            f"</title></head><body>"
+            f'<form action="/search"><input name="q" '
+            f'value="{html_mod.escape(res.query)}"><input type="submit" '
+            f'value="search"></form>'
+            f"<p>{res.total_matches} matches</p><ol>{items}</ol>{tid}"
+            f"</body></html>", "text/html")
+
+
+def _json(status: int, body: dict) -> tuple[int, str, str]:
+    return status, json.dumps(body), "application/json"
+
+
+class SearchHTTPServer:
+    """Owns a node's collections and serves the reference's public
+    endpoints. ``device`` is where every collection scores (``None``
+    means ``cuda``, which raises without a card; pass ``"cpu"`` to run
+    on the CPU). ``colldb``: an already open registry over ``base_dir``
+    to serve (its collections keep their device)."""
+
+    BAN_COOLDOWN_S = 60.0
+
+    def __init__(self, base_dir, host: str = "127.0.0.1", port: int = 8000,
+                 sharded=None, cluster=None, conf: Conf | None = None,
+                 device=None, colldb: CollectionDb | None = None):
+        if sharded is not None or cluster is not None:
+            raise NotImplementedError(
+                "sharded and cluster serving are not ported yet: ROADMAP "
+                "queue item 9 (the mesh)")
+        self.colldb = colldb if colldb is not None \
+            else CollectionDb(base_dir, device=device)
+        self.host = host
+        self.port = port
+        self.conf = conf or Conf()
+        gbconf = Path(base_dir) / "gb.conf"
+        if conf is None and gbconf.exists():
+            self.conf.load(gbconf)
+        # guardrail wiring: the process memory budget follows max_mem,
+        # and the checkify parm arms the device checks
+        g_membudget.set_limit(self.conf.max_mem)
+        if self.conf.checkify:
+            devcheck.set_enabled(True)
+        # trace plane: sampling and slow-query threshold from the parms,
+        # the slowlog in the base directory (the tracer is process-wide:
+        # the last server constructed owns the slowlog path)
+        g_tracer.configure(sample_n=self.conf.trace_sample,
+                           slow_ms=self.conf.slow_query_ms,
+                           slowlog_path=Path(base_dir) / "slowlog.jsonl",
+                           host=f"{host}:{port}")
+        self.conf.on_update(self._on_guardrail_parm)
+        self.stats = {"queries": 0, "injects": 0, "addurls": 0,
+                      "gets": 0, "errors": 0, "auth_denied": 0}
+        self._httpd: NodeHTTPServer | None = None
+        self._thread: threading.Thread | None = None
+        #: the SLO tick (the statsdb sampler's evaluation, without the
+        #: sample ring it also writes)
+        self._slo_thread: threading.Thread | None = None
+        self._stop_ticks = threading.Event()
+        # the Rdbs, memtables and caches are single-writer structures:
+        # the threaded accept plane serializes at this lock
+        self._lock = make_rlock("server.core")
+        #: /search micro-batching onto the resident device route
+        self._batcher = QueryBatcher(self._run_device_batch)
+        #: the admission plane: a bounded, tiered gate in front of the
+        #: batcher that sheds stale-or-503 before memory runs out
+        self.admission = admission_mod.AdmissionGate()
+        #: the tenant plane owns each collection's (DeviceIndex,
+        #: ResidentLoop); its hot-set count rides tenant_hot, its byte
+        #: bound the membudget "device" label cap (device_budget)
+        g_residency.configure(max_resident=int(self.conf.tenant_hot))
+        g_residency.attach(g_membudget)
+        if int(self.conf.device_budget) > 0:
+            g_membudget.set_label_cap("device",
+                                      int(self.conf.device_budget))
+        #: AutoBan (AutoBan.cpp): per-IP query rate limiting. hits =
+        #: ip → recent request times; banned = ip → ban expiry
+        self._ab_lock = make_lock("server.autoban")
+        self._ab_hits: dict[str, list[float]] = {}
+        self._ab_banned: dict[str, float] = {}
+        #: niceness gate: background requests yield to interactive ones
+        self.nice_gate = NicenessGate()
+        #: Msg17/Msg40Cache: rendered result pages on the cache plane,
+        #: keyed per request with the index generation (_result_gen)
+        self._result_cache = g_cacheplane.register(
+            "server.results", ttl_s=30.0, max_entries=2048,
+            desc="rendered result pages (Msg17/Msg40Cache role)")
+        #: per-user admin accounts (Users.cpp / users.txt)
+        self.users = Users(base_dir)
+
+    def _on_guardrail_parm(self, name: str, value) -> None:
+        """Live parm updates feeding the guardrail planes."""
+        if name == "max_mem":
+            g_membudget.set_limit(int(value))
+        elif name == "checkify":
+            # False reverts to the env default rather than forcing off,
+            # so OSSE_CHECKIFY=1 runs survive a parm update
+            devcheck.set_enabled(True if value else None)
+        elif name == "trace_sample":
+            g_tracer.configure(sample_n=int(value))
+        elif name == "slow_query_ms":
+            g_tracer.configure(slow_ms=float(value))
+        elif name == "tenant_hot":
+            g_residency.configure(max_resident=int(value))
+        elif name == "device_budget":
+            g_membudget.set_label_cap("device", int(value))
+
+    def _autobanned(self, ip: str, limit_qps: int) -> bool:
+        """A sliding one-second window per client IP; exceeding the limit
+        bans the IP for BAN_COOLDOWN_S."""
+        if not limit_qps or not ip:
+            return False
+        now = time.monotonic()
+        with self._ab_lock:
+            until = self._ab_banned.get(ip, 0.0)
+            if until > now:
+                return True
+            hits = self._ab_hits.setdefault(ip, [])
+            hits.append(now)
+            del hits[: max(0, len(hits) - 4 * limit_qps)]
+            recent = [t for t in hits if t > now - 1.0]
+            if len(recent) > limit_qps:
+                self._ab_banned[ip] = now + self.BAN_COOLDOWN_S
+                # the cooldown is the penalty: drop the window, so the
+                # first request after the ban is judged on fresh traffic
+                self._ab_hits.pop(ip, None)
+                if len(self._ab_banned) > 4096:
+                    self._ab_banned = {
+                        k: v for k, v in self._ab_banned.items()
+                        if v > now}
+                log.warning("autoban: %s exceeded %d qps", ip, limit_qps)
+                return True
+            if len(self._ab_hits) > 8192:  # bound the tracking table
+                self._ab_hits = {ip: hits}
+        return False
+
+    def _run_device_batch(self, key: tuple, queries: list[str]):
+        cname, topk, offset = key
+        # the device wave runs outside the core lock (the ResidentLoop
+        # serializes issue and collect itself); the lock covers the
+        # collection lookup and, through results_lock, the page build,
+        # which reads the single-writer Rdbs. Holding it across the
+        # batch would deadlock the batcher against the request threads.
+        with self._lock:
+            coll = self.colldb.get(cname)
+        return engine.search_device_batch(
+            coll, queries, topk=topk, offset=offset,
+            resident=True, results_lock=self._lock)
+
+    def _authorized(self, query: dict, min_role: str = "admin") -> bool:
+        """The master password or a users-table credential at the
+        required role; neither configured = an open instance."""
+        pwd = self.conf.master_password
+        has_users = bool(self.users.names())
+        if not pwd and not has_users:
+            return True
+        if pwd and query.get("pwd", "") == pwd:
+            return True
+        u = query.get("user", "")
+        return bool(u) and self.users.check(u, query.get("upwd", ""),
+                                            min_role=min_role)
+
+    # --- request handling -------------------------------------------------
+
+    def handle(self, method: str, path: str, query: dict,
+               body: bytes, client_ip: str = "",
+               niceness: int = 0,
+               tier: str | None = None,
+               tenant: str | None = None) -> tuple[int, str, str]:
+        """Route one request → (status, payload, content_type).
+        Background (niceness 1) requests yield to interactive ones;
+        ``tier``/``tenant`` are propagated X-OSSE-Priority /
+        X-OSSE-Tenant verdicts."""
+        # drop any response headers an earlier request left on this
+        # thread's context (direct handle() callers never pop them)
+        admission_mod.pop_response_headers()
+        self.nice_gate.enter(niceness)
+        try:
+            return self._handle_inner(method, path, query, body,
+                                      client_ip, niceness=niceness,
+                                      header_tier=tier,
+                                      header_tenant=tenant)
+        finally:
+            self.nice_gate.exit(niceness)
+
+    def _handle_inner(self, method: str, path: str, query: dict,
+                      body: bytes, client_ip: str = "",
+                      niceness: int = 0,
+                      header_tier: str | None = None,
+                      header_tenant: str | None = None
+                      ) -> tuple[int, str, str]:
+        try:
+            if path == "/":
+                return 200, self._page_root(), "text/html"
+            if path == "/search":
+                # autoban runs before any collection lookup, and read
+                # paths never create collections: arbitrary c= names
+                # mint no directories (nor bypass the rate limit)
+                coll = self._coll_read(query)
+                limit = int(coll.conf.autoban_qps) if coll is not None \
+                    else int(parms_mod.parm("autoban_qps").default)
+                if self._autobanned(client_ip, limit):
+                    g_stats.count("autoban.rejected")
+                    return _json(429, {"error": "query rate limit "
+                                                "(autoban)"})
+                if coll is None:
+                    return _json(404, {"error": "no such collection"})
+                # front-door classification: tier= param > propagated
+                # header > niceness bit > interactive
+                tier = priority_mod.classify(query, niceness=niceness,
+                                             header_tier=header_tier)
+                g_stats.count(f"admission.tier.{tier}")
+                # the billing tenant is the collection
+                tenant = header_tenant or query.get("c", "main")
+                # not under the core lock: the batcher's worker takes it
+                with priority_mod.bind_tier(tier), \
+                        priority_mod.bind_tenant(tenant):
+                    return self._page_search(query, tier=tier,
+                                             tenant=tenant)
+            with self._lock:
+                return self._route(method, path, query, body)
+        except Exception as e:  # noqa: BLE001 — the server must not die
+            self.stats["errors"] += 1
+            log.warning("error handling %s: %s", path, e)
+            return _json(500, {"error": str(e)})
+
+    def _route(self, method: str, path: str, query: dict,
+               body: bytes) -> tuple[int, str, str]:
+        if path == "/get":
+            return self._page_get(query)
+        if path in ("/inject", "/addurl", "/delete", "/crawlbot"):
+            # index-mutating endpoints are admin-gated once a master
+            # password is set (PageInject/Pages auth)
+            if not self._authorized(query):
+                self.stats["auth_denied"] += 1
+                return _json(401, {"error": "bad or missing pwd"})
+            if path == "/inject":
+                return self._page_inject(query, body)
+            if path == "/delete":
+                return self._page_delete(query)
+            if path == "/addurl":
+                return self._page_addurl(query)
+        if path == "/metrics":
+            # Prometheus-style exposition for external scrapers: like
+            # /search, unauthenticated read-only plumbing
+            return 200, self._metrics_text(), "text/plain"
+        if path.startswith("/admin") and not self._authorized(query):
+            self.stats["auth_denied"] += 1
+            return _json(401, {"error": "bad or missing pwd"})
+        if path in NOT_PORTED:
+            return _json(501, {"error": f"{path} is not ported: ROADMAP "
+                                        f"{NOT_PORTED[path]}"})
+        if path in ("/admin", "/admin/"):
+            return 200, self._page_admin_index(query), "text/html"
+        if path == "/admin/stats":
+            return _json(200, dict(self.stats))
+        if path == "/admin/mem":
+            return self._page_mem(query)
+        if path == "/admin/cache":
+            return self._page_cache(query)
+        if path == "/admin/traces":
+            return self._page_traces(query)
+        if path == "/admin/parms":
+            return self._page_parms(query)
+        if path == "/admin/admission":
+            return self._page_admission(query)
+        if path == "/admin/tenants":
+            return self._page_tenants(query)
+        return _json(404, {"error": "no such page"})
+
+    def _coll(self, query: dict):
+        return self.colldb.get(query.get("c", "main"))
+
+    def _coll_read(self, query: dict):
+        """Read-path lookup: never creates on-disk state for arbitrary
+        ``c=`` names, except the default collection (a fresh instance
+        answers ``/search?q=x`` with zero results, not 404). None for an
+        unknown collection."""
+        name = query.get("c", "main")
+        try:
+            return self.colldb.get(name, create=(name == "main"))
+        except KeyError:
+            return None
+
+    def _page_root(self) -> str:
+        return ('<html><body><form action="/search">'
+                '<input name="q"><input type="submit" value="search">'
+                "</form></body></html>")
+
+    def _page_search(self, query: dict, tier: str = "interactive",
+                     tenant: str | None = None) -> tuple[int, str, str]:
+        q = query.get("q", "")
+        if not q:
+            return _json(400, {"error": "missing q"})
+        # debug=1 forces this query's trace and echoes its id
+        debug = query.get("debug", "") not in ("", "0")
+        with g_tracer.start("search", sampled=True if debug else None,
+                            q=q, tier=tier) as tr:
+            # the whole-request latency histogram (cache hits and
+            # degraded answers included), and its per-tier twin
+            with trace_mod.timed_span("serve.search"), \
+                    trace_mod.timed_span(f"serve.search.{tier}"):
+                return self._page_search_traced(query, q, debug, tr,
+                                                tier=tier, tenant=tenant)
+
+    def _query_deadline(self, query: dict):
+        """The per-query budget: ``deadline_ms=`` on the request, else
+        ``OSSE_DEADLINE_MS``; absent or 0 = unbudgeted."""
+        raw = query.get("deadline_ms", "") \
+            or os.environ.get("OSSE_DEADLINE_MS", "")
+        try:
+            ms = float(raw)
+        except (TypeError, ValueError):
+            return None
+        if ms <= 0:
+            return None
+        return deadline_mod.Deadline.after(ms / 1000.0)
+
+    def _count_cache_hit(self, status: str) -> None:
+        self.stats["result_cache_hits"] = \
+            self.stats.get("result_cache_hits", 0) + 1
+        trace_mod.tag(result_cache=status)
+
+    def _page_search_traced(self, query: dict, q: str, debug: bool,
+                            tr, tier: str = "interactive",
+                            tenant: str | None = None
+                            ) -> tuple[int, str, str]:
+        n = min(int(query.get("n", 10)), 100)
+        # deep paging (PageResults s=), bounded so a hostile s cannot
+        # force a corpus-sized top-k
+        s = min(max(int(query.get("s", 0)), 0), 100000)
+        fmt = query.get("format", "json")
+        self.stats["queries"] += 1
+        cname = query.get("c", "main")
+        rc_coll = self._coll_read(query)
+        ttl = float(rc_coll.conf.result_cache_ttl)
+        swr = float(rc_coll.conf.result_cache_swr)
+        ckey = gen = None
+        # debug requests bypass the result cache both ways: a cached
+        # body would echo a stale trace id
+        if ttl > 0 and not debug:
+            gen = self._result_gen(rc_coll)
+            ckey = (cname, q, n, s, fmt)
+        dl = self._query_deadline(query)
+        # a fresh cache hit bypasses the admission gate: serving from
+        # memory costs nothing the gate protects
+        if ckey is not None:
+            hit, page = self._result_cache.lookup(ckey, gen=gen)
+            if hit:
+                self._count_cache_hit("hit")
+                return page
+        try:
+            token = self.admission.admit(tier, deadline=dl, tenant=tenant)
+        except admission_mod.Shed as shed:
+            return self._shed_response(shed, ckey, gen)
+        try:
+            with token, deadline_mod.bind(dl):
+                out = self._search_cached(query, q, n, s, fmt, rc_coll,
+                                          debug, tr, ckey, gen, ttl, swr)
+            deadline_mod.note_met(dl)
+            return out
+        except priority_mod.QueueFull:
+            # a bounded dispatch queue refused past the gate: the same
+            # shed ladder
+            return self._shed_response(admission_mod.Shed("queue_full"),
+                                       ckey, gen)
+        except deadline_mod.DeadlineExceeded:
+            # the budget burned downstream: the same generation's
+            # just-expired page beats a refusal, marked degraded
+            if ckey is not None:
+                hit, page = self._result_cache.lookup_stale(ckey, gen=gen)
+                if hit:
+                    g_stats.count("deadline.stale_served")
+                    trace_mod.tag(deadline="expired", results="degraded")
+                    self.stats["deadline_stale"] = \
+                        self.stats.get("deadline_stale", 0) + 1
+                    return page
+            g_stats.count("deadline.refused")
+            return _json(504, {"error": "deadline exceeded"})
+
+    def _shed_response(self, shed: admission_mod.Shed, ckey, gen
+                       ) -> tuple[int, str, str]:
+        """The shed ladder, cheapest first: the same generation's stale
+        page marked degraded, else 503 + Retry-After. Every shed is
+        counted."""
+        if ckey is not None:
+            hit, page = self._result_cache.lookup_stale(ckey, gen=gen)
+            if hit:
+                g_stats.count("admission.shed.stale")
+                trace_mod.tag(admission=shed.reason, results="degraded")
+                self.stats["admission_stale"] = \
+                    self.stats.get("admission_stale", 0) + 1
+                return page
+        g_stats.count("admission.shed.refused")
+        trace_mod.tag(admission=shed.reason, results="refused")
+        self.stats["admission_refused"] = \
+            self.stats.get("admission_refused", 0) + 1
+        retry = max(1, int(round(shed.retry_after_s)))
+        admission_mod.set_response_header("Retry-After", str(retry))
+        return _json(503, {"error": f"overloaded ({shed.reason})",
+                           "retryAfter": retry})
+
+    def _search_cached(self, query: dict, q: str, n: int, s: int,
+                       fmt: str, rc_coll, debug: bool, tr, ckey, gen,
+                       ttl: float, swr: float) -> tuple[int, str, str]:
+        """Msg17/Msg40Cache: identical pages within the TTL serve from
+        memory; the index version in the generation invalidates them at
+        once on a write. A page answered by a device index behind that
+        version (the old index serving while a background rebuild runs)
+        is served but not cached, so the fresh index's first answer is
+        not shadowed by a pre-write page."""
+        answered: dict = {}
+        if ckey is not None:
+            hit, page = self._result_cache.lookup(ckey, gen=gen)
+            if hit:
+                self._count_cache_hit("hit")
+                return page
+            if swr > 0:
+                # stale-while-revalidate: serve the just-expired page
+                # and refresh in the background, never across a
+                # generation move (get_or_compute enforces that)
+                page, status = self._result_cache.get_or_compute(
+                    ckey,
+                    lambda: self._render_search(query, q, n, s, fmt,
+                                                rc_coll, debug, tr,
+                                                answered=answered),
+                    ttl_s=ttl, gen=gen, swr_s=swr)
+                if status in ("hit", "stale", "join"):
+                    self._count_cache_hit(status)
+                if answered.get("generation", gen[1]) != gen[1]:
+                    self._result_cache.invalidate(ckey)
+                return page
+        page = self._render_search(query, q, n, s, fmt, rc_coll, debug, tr,
+                                   answered=answered)
+        if ckey is not None and \
+                answered.get("generation", gen[1]) == gen[1]:
+            self._result_cache.put(ckey, page, ttl_s=ttl, gen=gen)
+        return page
+
+    def _result_gen(self, rc_coll) -> tuple:
+        """The result cache's generation: the version a write to the
+        collection's posdb moves."""
+        return ("flat", rc_coll.posdb.version)
+
+    def _render_search(self, query: dict, q: str, n: int, s: int,
+                       fmt: str, rc_coll, debug: bool, tr,
+                       answered: dict | None = None
+                       ) -> tuple[int, str, str]:
+        """One page; ``answered["generation"]`` receives the posdb
+        version the device route answered at."""
+        if self.conf.serve_device:
+            # the resident device route through the micro-batcher. No
+            # host fallback: a failed batch answers 500 (serve.device_
+            # error); overload and expiry take the serve edge's ladders
+            try:
+                res = self._batcher.search((query.get("c", "main"), n, s),
+                                           q)
+            except (deadline_mod.DeadlineExceeded,
+                    priority_mod.QueueFull):
+                raise
+            except Exception:
+                g_stats.count("serve.device_error")
+                raise
+        else:
+            with self._lock:
+                res = engine.search(rc_coll, q, topk=n, offset=s)
+        if answered is not None and res.generation is not None:
+            answered["generation"] = res.generation
+        payload, ctype = render_results(
+            res, fmt,
+            trace_id=tr.trace_id if (debug and tr is not None) else None)
+        return 200, payload, ctype
+
+    def _page_get(self, query: dict) -> tuple[int, str, str]:
+        """Cached page with optional highlight (PageGet.cpp)."""
+        docid = int(query.get("d", "0"))
+        self.stats["gets"] += 1
+        coll = self._coll_read(query)  # read path: never mint colls
+        rec = docproc.get_document(coll, docid=docid) \
+            if coll is not None else None
+        if rec is None:
+            return _json(404, {"error": "not found"})
+        content = rec.get("content", rec.get("text", ""))
+        terms = [w for w in query.get("q", "").split() if w]
+        if terms:
+            content = highlight(content, terms,
+                                pre='<span style="background:yellow">',
+                                post="</span>")
+        return 200, content, "text/html"
+
+    def _page_inject(self, query: dict, body: bytes) -> tuple[int, str, str]:
+        """Direct content injection (PageInject.cpp)."""
+        url = query.get("u") or query.get("url")
+        if not url:
+            return _json(400, {"error": "missing u"})
+        content = body.decode("utf-8", "replace") if body else \
+            query.get("content", "")
+        self.stats["injects"] += 1
+        ml = docproc.index_document(self._coll(query), url, content)
+        return _json(200, {"docId": ml.docid,
+                           "numKeys": len(ml.posdb_keys)})
+
+    def _page_delete(self, query: dict) -> tuple[int, str, str]:
+        """Remove a url from the index. The write moves posdb's version,
+        which invalidates every dependent cache entry."""
+        url = query.get("u") or query.get("url")
+        if not url:
+            return _json(400, {"error": "missing u"})
+        self.stats["deletes"] = self.stats.get("deletes", 0) + 1
+        if not docproc.remove_document(self._coll(query), url):
+            return _json(404, {"error": "not found"})
+        return _json(200, {"deleted": url})
+
+    def _page_addurl(self, query: dict) -> tuple[int, str, str]:
+        """Queue a url for spidering (PageAddUrl.cpp): no spider runs in
+        this package, so a valid request answers 503."""
+        url = query.get("u") or query.get("url")
+        if not url:
+            return _json(400, {"error": "missing u"})
+        self.stats["addurls"] += 1
+        return _json(503, {"error": "spider not running"})
+
+    def _page_parms(self, query: dict) -> tuple[int, str, str]:
+        """The parameter table, and live updates of the collection's
+        parms by cgi name (``&rcttl=...``), which fire the conf's
+        ``on_update`` listeners."""
+        coll = self._coll(query)
+        updated = {}
+        for cgi, value in query.items():
+            if cgi in ("c",):
+                continue
+            try:
+                coll.conf.set_from_cgi(cgi, value)
+                updated[cgi] = value
+            except KeyError:
+                continue
+        table = [{"name": p.name, "cgi": p.cgi, "type": p.type.__name__,
+                  "default": p.default, "scope": p.scope, "desc": p.desc}
+                 for p in parms_mod.parm_table()]
+        return _json(200, {"updated": updated, "coll": coll.conf.to_dict(),
+                           "table": table})
+
+    # --- admin pages -------------------------------------------------------
+
+    def _page_admin_index(self, query: dict) -> str:
+        pwd = query.get("pwd", "")
+        sfx = f"?pwd={urllib.parse.quote(pwd)}" if pwd else ""
+        links = "".join(
+            f'<li><a href="/admin/{p}{sfx}">{p}</a></li>'
+            for p in ("stats", "mem", "cache", "traces", "parms",
+                      "admission", "tenants")) \
+            + '<li><a href="/metrics">metrics</a></li>'
+        rows = "".join(f"<tr><td>{k}</td><td>{v}</td></tr>"
+                       for k, v in self.stats.items())
+        colls = ", ".join(self.colldb.names())
+        return (f"<html><head><title>gb admin</title></head><body>"
+                f"<h1>admin</h1><p>collections: {colls}</p>"
+                f"<ul>{links}</ul><table border=1>{rows}</table>"
+                f"</body></html>")
+
+    def _page_admission(self, query: dict) -> tuple[int, str, str]:
+        """Gate occupancy and tier queues, the shed/tier counters and the
+        queue-delay histogram. ``?format=json`` returns the snapshot."""
+        snap = self.admission.snapshot()
+        adm = g_stats.prefixed("admission.")
+        snap["counters"] = dict(sorted(adm["counters"].items()))
+        snap["queue_delay"] = adm["latencies"].get(
+            "admission.queue_delay", {})
+        if query.get("format") == "json":
+            return _json(200, snap)
+        qrows = "".join(f"<tr><td>{t}</td><td>{n}</td></tr>"
+                        for t, n in snap["queued"].items())
+        crows = "".join(f"<tr><td>{k}</td><td>{v}</td></tr>"
+                        for k, v in snap["counters"].items()) \
+            or "<tr><td colspan=2>none</td></tr>"
+        return 200, (
+            "<html><head><title>gb admission</title></head><body>"
+            "<h1>admission</h1>"
+            f"<p>inflight {snap['inflight']}/{snap['max_inflight']}"
+            f" &middot; queued {snap['queued_total']}/{snap['max_queue']}"
+            f" &middot; svc EWMA {snap['svc_ewma_ms']} ms"
+            f" &middot; admitted {snap['admitted_total']}"
+            f" &middot; shed {snap['shed_total']}</p>"
+            "<table border=1><tr><th>tier</th><th>queued</th></tr>"
+            f"{qrows}</table>"
+            f"<h2>queue delay</h2><p>{json.dumps(snap['queue_delay'])}</p>"
+            f"<h2>counters</h2><table border=1>{crows}</table>"
+            "</body></html>"), "text/html"
+
+    def _page_tenants(self, query: dict) -> tuple[int, str, str]:
+        """The resident set (ResidencyManager) beside each tenant's
+        admission ledger. ``?format=json`` returns both snapshots."""
+        res = g_residency.snapshot()
+        adm = self.admission.snapshot().get("tenants", {})
+        if query.get("format") == "json":
+            return _json(200, {"residency": res, "admission": adm})
+        rows = []
+        for n in sorted(set(res["tenants"]) | set(adm)):
+            rt, at = res["tenants"].get(n, {}), adm.get(n, {})
+            served, shed = at.get("served", 0), at.get("shed", 0)
+            burn = shed / (served + shed) if served + shed else 0.0
+            rows.append(
+                f"<tr><td>{html_mod.escape(n)}</td>"
+                f"<td>{'RESIDENT' if rt.get('resident') else 'parked'}"
+                f"{' (pinned)' if rt.get('pinned') else ''}</td>"
+                f"<td>{rt.get('device_bytes', 0) / (1 << 20):.2f}</td>"
+                f"<td>{rt.get('hits', 0)}</td>"
+                f"<td>{rt.get('cold_starts', 0)}</td>"
+                f"<td>{at.get('weight', 1.0):g}</td>"
+                f"<td>{served}</td><td>{shed}</td>"
+                f"<td>{100.0 * burn:.1f}%</td></tr>")
+        table = "".join(rows) or "<tr><td colspan=9>no tenants</td></tr>"
+        return 200, (
+            "<html><head><title>gb tenants</title></head><body>"
+            "<h1>tenant plane</h1>"
+            f"<p>resident {res['resident']} &middot; parked "
+            f"{res['parked']} &middot; device "
+            f"{res['device_bytes'] / (1 << 20):.1f} MB &middot; cold "
+            f"starts {res['coldstarts']} (p50 "
+            f"{res['coldstart_p50_ms']:.1f} ms, p99 "
+            f"{res['coldstart_p99_ms']:.1f} ms)</p>"
+            "<table border=1><tr><th>tenant</th><th>state</th>"
+            "<th>device MB</th><th>hits</th><th>cold starts</th>"
+            "<th>weight</th><th>served</th><th>shed</th>"
+            f"<th>shed rate</th></tr>{table}</table>"
+            "</body></html>"), "text/html"
+
+    def _page_mem(self, query: dict) -> tuple[int, str, str]:
+        """The memory budget by label, with the guardrail counters.
+        ``?format=json`` returns the snapshot."""
+        snap = g_membudget.snapshot()
+        snap["counters"] = {
+            k: v for k, v in sorted(g_stats.snapshot()["counters"].items())
+            if k.startswith(("membudget.", "devcheck."))}
+        snap["checkify"] = devcheck.enabled()
+        if query.get("format") == "json":
+            return _json(200, snap)
+
+        def mb(n):
+            return f"{n / (1 << 20):.2f}"
+        rows = "".join(
+            f"<tr><td>{lb}</td><td>{mb(d['reserved'])}</td>"
+            f"<td>{mb(d['gauged'])}</td><td>{d['rejections']}</td></tr>"
+            for lb, d in snap["labels"].items())
+        crows = "".join(f"<tr><td>{k}</td><td>{v}</td></tr>"
+                        for k, v in snap["counters"].items()) \
+            or "<tr><td colspan=2>none</td></tr>"
+        return 200, (
+            "<html><head><title>gb mem</title></head><body>"
+            "<h1>memory budget</h1>"
+            f"<p>limit {mb(snap['limit'])} MB &middot; "
+            f"used {mb(snap['used'])} MB &middot; "
+            f"free {mb(snap['free'])} MB &middot; "
+            f"high water {mb(snap['high_water'])} MB &middot; "
+            f"rejections {snap['rejections']} &middot; "
+            f"checkify {'on' if snap['checkify'] else 'off'}</p>"
+            "<table border=1><tr><th>label</th><th>reserved MB</th>"
+            f"<th>gauged MB</th><th>rejections</th></tr>{rows}</table>"
+            f"<h2>guardrail counters</h2><table border=1>{crows}</table>"
+            "</body></html>"), "text/html"
+
+    def _page_cache(self, query: dict) -> tuple[int, str, str]:
+        """Every registered cache with entries, bytes, hit rate and
+        generation; ``?flush=<name>`` or ``?flush=all`` flushes, and
+        ``?format=json`` returns the snapshot and the ``cache.*``
+        metrics."""
+        flush = query.get("flush", "")
+        flushed = None
+        if flush:
+            flushed = g_cacheplane.flush(None if flush == "all" else flush)
+        snap = g_cacheplane.snapshot()
+        if query.get("format") == "json":
+            body = {"caches": snap, "enabled": g_cacheplane.enabled,
+                    "metrics": g_stats.prefixed("cache.")}
+            if flushed is not None:
+                body["flushed_bytes"] = flushed
+            return _json(200, body)
+        pwd = query.get("pwd", "")
+        sfx = f"&pwd={urllib.parse.quote(pwd)}" if pwd else ""
+        rows = "".join(
+            f"<tr><td>{nm}</td><td>{st['entries']}</td>"
+            f"<td>{st['bytes'] / (1 << 10):.1f}</td>"
+            f"<td>{st['hits']}</td><td>{st['misses']}</td>"
+            f"<td>{100.0 * st['hit_rate']:.1f}%</td>"
+            f"<td>{st['evictions']}</td><td>{st['stale_served']}</td>"
+            f"<td><code>{html_mod.escape(st['generation'])}</code></td>"
+            f"<td><a href=\"/admin/cache?flush="
+            f"{urllib.parse.quote(nm)}{sfx}\">flush</a></td></tr>"
+            for nm, st in snap.items()) \
+            or "<tr><td colspan=10>no registered caches</td></tr>"
+        note = (f"<p>flushed {flushed} bytes</p>"
+                if flushed is not None else "")
+        return 200, (
+            "<html><head><title>gb cache</title></head><body>"
+            "<h1>cache plane</h1>"
+            f"<p>plane {'enabled' if g_cacheplane.enabled else 'DISABLED'}"
+            f" &middot; <a href=\"/admin/cache?flush=all{sfx}\">"
+            "flush all</a></p>" + note +
+            "<table border=1><tr><th>cache</th><th>entries</th>"
+            "<th>KB</th><th>hits</th><th>misses</th><th>hit rate</th>"
+            "<th>evict</th><th>stale</th><th>generation</th><th></th>"
+            f"</tr>{rows}</table></body></html>"), "text/html"
+
+    def _page_traces(self, query: dict) -> tuple[int, str, str]:
+        """Recent sampled traces and the slow-query log. ``?id=`` shows
+        one trace's span tree; ``?format=json`` returns the ring and the
+        slowlog tail."""
+        recent = g_tracer.recent()
+        slowlog = g_tracer.slowlog_tail(50)
+        if query.get("format") == "json":
+            return _json(200, {"recent": recent, "slowlog": slowlog,
+                               "sample_n": g_tracer.sample_n,
+                               "slow_ms": g_tracer.slow_ms})
+        tid = query.get("id", "")
+        if tid:
+            tr = g_tracer.find(tid) or next(
+                (t for t in reversed(slowlog)
+                 if t.get("trace_id") == tid), None)
+            if tr is None:
+                return _json(404, {"error": "no such trace"})
+            return 200, (
+                "<html><head><title>trace</title></head><body>"
+                f"{self._trace_tree(tr)}"
+                '<p><a href="/admin/traces">all traces</a></p>'
+                "</body></html>"), "text/html"
+        blocks = "".join(self._trace_tree(t) for t in reversed(recent[-20:]))
+        slows = "".join(
+            f'<tr><td><a href="/admin/traces?id='
+            f'{html_mod.escape(str(t.get("trace_id", "")))}">'
+            f'{html_mod.escape(str(t.get("trace_id", "")))}</a></td>'
+            f'<td>{t.get("dur_ms", 0):.1f}</td></tr>'
+            for t in reversed(slowlog)) or "<tr><td colspan=2>empty</td></tr>"
+        return 200, (
+            "<html><head><title>gb traces</title></head><body>"
+            "<h1>traces</h1>"
+            f"<p>sampling 1/{g_tracer.sample_n} &middot; slow &ge; "
+            f"{g_tracer.slow_ms:.0f} ms &middot; ring {len(recent)}</p>"
+            "<h2>slow queries (slowlog.jsonl)</h2>"
+            "<table border=1><tr><th>trace</th><th>ms</th></tr>"
+            f"{slows}</table><h2>recent traces</h2>{blocks}"
+            "</body></html>"), "text/html"
+
+    @staticmethod
+    def _trace_tree(tr: dict) -> str:
+        """One trace as an indented list of its spans."""
+        rows: list[str] = []
+
+        def walk(node: dict, depth: int) -> None:
+            tags = " ".join(f"{k}={v}" for k, v in
+                            (node.get("tags") or {}).items())
+            rows.append(
+                f'<div style="margin-left:{depth * 16}px">'
+                + html_mod.escape(
+                    f"{node.get('name', '?')} +{node.get('start_ms', 0)}"
+                    f" ms, {node.get('dur_ms', 0):.2f} ms {tags}")
+                + "</div>")
+            for c in node.get("children", []):
+                walk(c, depth + 1)
+
+        walk(tr.get("root") or {}, 0)
+        return (f'<div style="border:1px solid #ccc;margin:8px">'
+                f'<p>trace <b>{html_mod.escape(str(tr.get("trace_id")))}'
+                f'</b> &middot; {tr.get("dur_ms", 0):.1f} ms'
+                + (" &middot; <b>slow</b>" if tr.get("slow") else "")
+                + f'</p>{"".join(rows)}</div>')
+
+    def _metrics_text(self) -> str:
+        """Prometheus-style text exposition of this process's metrics:
+        latency histograms (with OpenMetrics exemplars where a sampled
+        trace landed in a bucket), per-tenant outcomes, counters and
+        gauges. Metric names ride in a ``name`` label."""
+        fleet = merge_wire([g_stats.wire()])
+        lines = [
+            "# HELP osse_latency_ms latency histogram (ms)",
+            "# TYPE osse_latency_ms histogram",
+        ]
+        for name in sorted(fleet["latencies"]):
+            st = fleet["latencies"][name]
+            cum = 0
+            for idx in sorted(st.buckets):
+                cum += st.buckets[idx]
+                hi = _bucket_bounds(idx)[1]
+                line = (f'osse_latency_ms_bucket{{name="{name}",'
+                        f'le="{hi:g}"}} {cum}')
+                ex = st.exemplars.get(idx)
+                if ex is not None:
+                    line += f' # {{trace_id="{ex[0]}"}} {ex[1]:g}'
+                lines.append(line)
+            lines.append(f'osse_latency_ms_bucket{{name="{name}",'
+                         f'le="+Inf"}} {st.count}')
+            lines.append(f'osse_latency_ms_sum{{name="{name}"}} '
+                         f"{st.total_ms:g}")
+            lines.append(f'osse_latency_ms_count{{name="{name}"}} '
+                         f"{st.count}")
+        lines.append("# TYPE osse_tenant_requests_total counter")
+        for k, v in sorted(fleet["counters"].items()):
+            if not k.startswith("admission.tenant."):
+                continue
+            t, _, outcome = k[len("admission.tenant."):].rpartition(".")
+            if t and outcome in ("served", "shed"):
+                lines.append(f'osse_tenant_requests_total{{tenant="{t}",'
+                             f'outcome="{outcome}"}} {v}')
+        lines.append("# TYPE osse_counter counter")
+        lines.extend(f'osse_counter{{name="{k}"}} {v}'
+                     for k, v in sorted(fleet["counters"].items()))
+        lines.append("# TYPE osse_gauge gauge")
+        lines.extend(f'osse_gauge{{name="{k}"}} {v:g}'
+                     for k, v in sorted(fleet["gauges"].items()))
+        return "\n".join(lines) + "\n"
+
+    # --- lifecycle --------------------------------------------------------
+
+    def start(self) -> None:
+        # the traffic-plane objective, declared by default so every
+        # server exports slo.query_p99.* (operators may declare richer
+        # objectives before start())
+        if not g_slo.objectives:
+            g_slo.declare_latency("query_p99", "serve.search",
+                                  threshold_ms=500.0, target=0.99)
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt, *args):  # route to our logger
+                log.debug("%s " + fmt, self.client_address[0], *args)
+
+            def _serve(self, method: str):
+                parsed = urllib.parse.urlsplit(self.path)
+                query = dict(urllib.parse.parse_qsl(parsed.query))
+                length = int(self.headers.get("Content-Length") or 0)
+                body = self.rfile.read(length) if length else b""
+                try:
+                    nice = int(self.headers.get("X-Niceness") or 0)
+                except ValueError:
+                    nice = 0
+                tier = priority_mod.tier_from_header(
+                    self.headers.get(priority_mod.PRIORITY_HEADER))
+                tenant = priority_mod.tenant_from_header(
+                    self.headers.get(priority_mod.TENANT_HEADER))
+                status, payload, ctype = outer.handle(
+                    method, parsed.path, query, body,
+                    client_ip=self.client_address[0], niceness=nice,
+                    tier=tier, tenant=tenant)
+                data = payload.encode("utf-8")
+                self.send_response(status)
+                self.send_header("Content-Type", ctype + "; charset=utf-8")
+                self.send_header("Content-Length", str(len(data)))
+                # a shed 503 stashes Retry-After on the side channel
+                # (handle() ran on this thread)
+                for hname, hval in admission_mod.pop_response_headers():
+                    self.send_header(hname, hval)
+                self.end_headers()
+                self.wfile.write(data)
+
+            def do_GET(self):
+                self._serve("GET")
+
+            def do_POST(self):
+                self._serve("POST")
+
+        self._httpd = NodeHTTPServer((self.host, self.port), Handler)
+        # TLS (gb.pem role): wrap the listening socket when a cert is
+        # configured; the handshake happens on first read, in the
+        # connection's thread, so a stalled client cannot block accept
+        cert = self.conf.ssl_cert or ""
+        if cert:
+            import ssl
+            ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ctx.load_cert_chain(cert, keyfile=self.conf.ssl_key or None)
+            self._httpd.socket = ctx.wrap_socket(
+                self._httpd.socket, server_side=True,
+                do_handshake_on_connect=False)
+            log.info("TLS enabled (cert=%s)", cert)
+        self.port = self._httpd.server_address[1]  # resolve port 0
+        g_tracer.configure(host=f"{self.host}:{self.port}")
+        self._thread = threads.spawn(f"httpd-{self.port}",
+                                     self._httpd.serve_forever)
+        if not self._batcher.alive:  # a stop()/start() cycle
+            self._batcher = QueryBatcher(self._run_device_batch)
+        self._stop_ticks.clear()
+        self._slo_thread = threads.spawn("slo-tick", self._slo_loop)
+        log.info("http server on %s:%d", self.host, self.port)
+
+    SLO_TICK_S = 10.0
+
+    def _slo_loop(self) -> None:
+        """Evaluate the declared objectives every SLO_TICK_S, so the
+        degrade signal the admission gate reads follows the traffic; a
+        failed evaluation costs one tick."""
+        while not self._stop_ticks.wait(self.SLO_TICK_S):
+            try:
+                g_slo.evaluate()
+            except Exception:  # noqa: BLE001 — keep ticking
+                log.exception("slo evaluation failed")
+                g_stats.count("slo.eval_errors")
+
+    def stop(self) -> None:
+        """Stop the batcher, park every resident tenant (their records
+        survive, so a restart cold-starts cleanly) and close the
+        socket."""
+        self._stop_ticks.set()
+        self._batcher.stop()
+        g_residency.stop_all()
+        if self._httpd:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        for t in (self._thread, self._slo_thread):
+            if t is not None:
+                t.join(timeout=10)
+        self._thread = self._slo_thread = None
+
+
+def serve(base_dir, host: str = "127.0.0.1", port: int = 8000,
+          device=None) -> SearchHTTPServer:
+    """Construct and start a server (see :class:`SearchHTTPServer`)."""
+    s = SearchHTTPServer(base_dir, host, port, device=device)
+    s.start()
+    return s

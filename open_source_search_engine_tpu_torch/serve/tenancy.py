@@ -93,6 +93,12 @@ class ResidencyManager:
 
     # --- wiring -----------------------------------------------------------
 
+    def configure(self, max_resident: int | None = None) -> None:
+        """Live-update knobs (the tenant_hot parm hook)."""
+        if max_resident is not None:
+            with self._lock:
+                self.max_resident = int(max_resident)
+
     def attach(self, budget=None) -> None:
         """(Re-)register the pressure handler (idempotent by key)."""
         (budget or g_membudget).add_pressure_handler(

@@ -23,9 +23,10 @@ cyclic garbage collector runs inside a locked section waits on its own
 thread forever. Here the lock is re-entrant, and a ``set_gauge`` that
 arrives on a thread already inside a locked section is queued and
 applied at the start of the next locked call, so it neither waits nor
-mutates a table the interrupted frame is iterating. Not carried: the
-reference's chaos-forced pressure in ``reserve``, its live limit update,
-``reserving()`` and the ``/admin/mem`` snapshot (no caller yet).
+mutates a table the interrupted frame is iterating; a finalizer queues
+its write unconditionally (``set_gauge_later``). Not carried: the
+reference's chaos-forced pressure in ``reserve`` and ``reserving()``
+(no caller yet).
 """
 
 from __future__ import annotations
@@ -44,6 +45,9 @@ log = get_logger("membudget")
 #: default budget (4 GB per instance, Conf::m_maxMem)
 DEFAULT_LIMIT = 4 << 30
 
+#: the labels /admin/mem always lists
+LABELS = ("memtable", "merge", "pack", "docproc", "cache", "device")
+
 
 class MemBudget:
     """Process-wide labelled memory budget with graceful refusal."""
@@ -56,6 +60,9 @@ class MemBudget:
         #: locked call (deque append and popleft are atomic)
         self._pending: deque = deque()
         self.limit = int(limit)
+        #: label -> refused reserves; the most ever used
+        self.rejections: dict[str, int] = {}
+        self.high_water = 0
         #: label -> reserved bytes (transient working sets)
         self._reserved: dict[str, int] = {}
         #: label -> {owner key -> bytes} (long-lived gauges)
@@ -84,6 +91,11 @@ class MemBudget:
                 yield
             finally:
                 self._tls.depth = depth
+
+    def set_limit(self, limit: int) -> None:
+        """Re-point the budget (the max_mem parm's live update)."""
+        with self._locked():
+            self.limit = max(int(limit), 1)
 
     # --- caps ------------------------------------------------------------
 
@@ -145,6 +157,7 @@ class MemBudget:
             return
         with self._locked():
             self._apply_gauge_locked(label, key, int(nbytes))
+            self.high_water = max(self.high_water, self._used_locked())
             cap = self._caps.get(label, 0)
             over = (cap > 0 and label not in self._relieving
                     and self._label_used_locked(label) > cap)
@@ -160,6 +173,11 @@ class MemBudget:
             finally:
                 with self._locked():
                     self._relieving.discard(label)
+
+    def set_gauge_later(self, label: str, key: object, nbytes: int) -> None:
+        """``set_gauge`` for finalizers: takes no lock (a deque append is
+        atomic) and is applied by the next locked call."""
+        self._pending.append((label, key, int(nbytes)))
 
     def reserve(self, label: str, nbytes: int) -> bool:
         """Claim ``nbytes`` under ``label``; False = over budget after
@@ -186,6 +204,8 @@ class MemBudget:
             with self._locked():
                 fits = _fits_locked()
         if not fits:
+            with self._locked():
+                self.rejections[label] = self.rejections.get(label, 0) + 1
             g_stats.count("membudget.reject")
             g_stats.count(f"membudget.reject.{label}")
             log.warning(
@@ -195,6 +215,7 @@ class MemBudget:
             return False
         with self._locked():
             self._reserved[label] = self._reserved.get(label, 0) + nbytes
+            self.high_water = max(self.high_water, self._used_locked())
         return True
 
     def release(self, label: str, nbytes: int) -> None:
@@ -250,6 +271,26 @@ class MemBudget:
             with self._locked():
                 self._pressure = [e for e in self._pressure
                                   if e not in dead]
+
+
+    # --- observability -------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """The ``/admin/mem`` body: limit, use, and each label's bytes."""
+        with self._locked():
+            labels = {
+                lb: {"reserved": self._reserved.get(lb, 0),
+                     "gauged": sum(self._gauges.get(lb, {}).values()),
+                     "rejections": self.rejections.get(lb, 0),
+                     "cap": self._caps.get(lb, 0)}
+                for lb in sorted(set(self._reserved) | set(self._gauges)
+                                 | set(self.rejections) | set(LABELS))}
+            used = self._used_locked()
+            return {"limit": self.limit, "used": used,
+                    "free": max(self.limit - used, 0),
+                    "high_water": self.high_water,
+                    "rejections": sum(self.rejections.values()),
+                    "labels": labels}
 
 
 #: process-wide singleton (reference ``g_mem``)

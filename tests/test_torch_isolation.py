@@ -45,6 +45,17 @@ assert stats.g_stats.counters["build.device_base"] >= 1
 res = engine.search_device_batch(c, ["alpha beta"], topk=5, resident=True)
 assert res[0].total_matches == 1, res
 g_residency.reset()
+from open_source_search_engine_tpu_torch.cache import g_cacheplane
+from open_source_search_engine_tpu_torch.query import devcheck, speller
+from open_source_search_engine_tpu_torch.serve.server import (
+    SearchHTTPServer)
+srv = SearchHTTPServer(tempfile.mkdtemp(), port=0, device="cpu")
+docproc.index_document(srv.colldb.get("main"), "http://b.test/y",
+                       "<html><title>gamma</title><p>gamma delta.</p></html>")
+code, body, _ = srv.handle("GET", "/search", dict(q="gamma"), b"")
+assert code == 200 and '"totalMatches": 1' in body, body
+srv.stop()
+g_residency.reset()
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "open_source_search_engine_tpu"
@@ -58,6 +69,34 @@ def _clean_env():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     return env
+
+
+_CLI_PROBE = """
+import runpy, sys
+sys.path.insert(0, {root!r})
+sys.argv = ["open_source_search_engine_tpu_torch", "serve", "--help"]
+try:
+    runpy.run_module("open_source_search_engine_tpu_torch",
+                     run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+import open_source_search_engine_tpu_torch.serve.server
+bad = [m for m in sys.modules
+       if m == "jax" or m.startswith("jax.")
+       or m == "open_source_search_engine_tpu"
+       or m.startswith("open_source_search_engine_tpu.")]
+assert not bad, bad
+print("ISOLATED")
+"""
+
+
+def test_serve_cli_help_imports_no_jax(tmp_path):
+    out = subprocess.run(
+        [sys.executable, "-c", _CLI_PROBE.format(root=str(ROOT))],
+        capture_output=True, text=True, cwd=tmp_path, env=_clean_env(),
+        timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "ISOLATED" in out.stdout and "--torch-device" in out.stdout
 
 
 def test_port_imports_no_jax_in_a_fresh_process(tmp_path):
