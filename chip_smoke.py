@@ -92,10 +92,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and with ``checkify`` on, the 64 trip nothing while an injected fault
    trips, is counted and answers 500;
 
-   (5e) the route corpus (``route_docs(48)`` under ``ROUTE_ENV``)
-   serves F1, FD and F2 queries on the card with results equal to the
-   same index on ``device="cpu"`` (escalation counts are compared on the
-   CPU only: the card's float32 scatter-add sums in no fixed order);
+   (5e) the numeric operators over the same collection (every page has
+   a ``date`` fielddb record): 16 of the queries plain, with a date
+   range (the 25th to 75th percentile), with ``gbsortby:date`` and with
+   ``gbsortbyrev:date``, through the flat path, the one-shot device
+   route, the resident loop and ``/search`` (16 clients, mixed specs
+   coalesced): every page equal to the flat path's, every date in range
+   and in order, filtered totals equal to a host count, K1 and K2
+   launched on the filtered and sorted waves, which take F1 and FD;
+
+   (5f) the route corpus (``route_docs(48)`` under ``ROUTE_ENV``, with a
+   tagdb siterank override, a ``sitepathdepth`` site, catdb categories
+   and two pages linking to each other) serves plain, filtered and
+   sorted F1, FD and F2 queries on the card with results and escalation
+   counts equal to the same index on ``device="cpu"``;
 6. run the golden QA suite (``tests/golden``) on the card through the
    flat path and through ``search_device``, against
    ``tests/golden/expected.json``;
@@ -568,6 +578,239 @@ def serve_over_http(colldb, coll, queries, work, reset_counts, profile_fn):
     return out
 
 
+def numeric_operators(colldb, coll, queries, work, reset_counts, card):
+    """(5e) the numeric operators over the bench collection, where every
+    page carries a ``date`` fielddb record: 16 of the queries plain, with
+    ``gbmin:date:<p25> gbmax:date:<p75>``, with ``gbsortby:date`` and
+    with ``gbsortbyrev:date``, through the flat path, the one-shot device
+    route (the filtered and the sorted queries as batches of their own,
+    the counters reset just before each), the resident loop (one batch
+    of the 64 mixed specs) and ``/search`` (the 64 from 16 clients, so
+    the batcher coalesces mixed specs). Every device page equals the
+    flat path's (totals exact, scores rtol=1e-5, docids by complete tie
+    runs) and every served page the in-process resident page; every
+    returned date lies in the range, sorted pages follow the date order,
+    a filtered total equals the in-range count of the plain query's
+    candidates counted on the host; the filtered and sorted queries take
+    F1 and FD and launch K1 and K2 and no plain version. (A sorted F1
+    query's bound is its exact key, so it escalates only where the
+    top-8-per-block selection misses, as the reference's does.) Returns
+    the phase's numbers; ``card`` is the ``nvidia-smi`` line printed
+    beside them."""
+    import numpy as np
+    import torch
+    from open_source_search_engine_tpu_torch.corpus import (
+        assert_pages_match, assert_tie_run_parity)
+    from open_source_search_engine_tpu_torch.query import engine
+    from open_source_search_engine_tpu_torch.query import \
+        fd_scores_kernel as fdk
+    from open_source_search_engine_tpu_torch.query import \
+        min_scores_kernel as msk
+    from open_source_search_engine_tpu_torch.query.compiler import \
+        compile_query
+    from open_source_search_engine_tpu_torch.query.packer import \
+        prepare_query
+    from open_source_search_engine_tpu_torch.serve.server import (
+        SearchHTTPServer, render_results)
+
+    t_phase = time.perf_counter()
+    on_card = coll.device.type == "cuda"
+    SC = dict(topk=10, with_snippets=False, site_cluster=False)
+    docids, dates = coll.fielddb.column("date")
+    assert len(docids) == coll.num_docs, (len(docids), coll.num_docs)
+    date_of = dict(zip(docids.tolist(), dates.tolist()))
+    lo, hi = (float(x) for x in np.percentile(dates, [25, 75]))
+    base = queries[:16]
+    specs = {"plain": "", "range": f" gbmin:date:{lo!r} gbmax:date:{hi!r}",
+             "sort": " gbsortby:date", "sortrev": " gbsortbyrev:date"}
+    qs = {k: [q + s for q in base] for k, s in specs.items()}
+    mixed = [q for k in specs for q in qs[k]]
+    out = {"date_p25": lo, "date_p75": hi}
+
+    def check(q, res):
+        """The range and the date order of one page."""
+        got = [date_of[int(d)] for d in res[0]]
+        plan = compile_query(q)
+        if plan.filters:
+            assert all(lo <= d <= hi for d in got), q
+        if plan.sortby is not None:
+            assert got == sorted(got, reverse=plan.sortby[1]), q
+
+    # the flat path (the recall oracle), timed per spec, and the host
+    # count of each range
+    flat, out["flat_ms"] = {}, {}
+    for k in specs:
+        t0 = time.perf_counter()
+        for q in qs[k]:
+            flat[q] = as_raw(engine.search(coll, q, **SC))
+        out["flat_ms"][k] = (time.perf_counter() - t0) * 1e3
+    for q, rq in zip(qs["plain"], qs["range"]):
+        cand = prepare_query(coll, compile_query(q)).cand
+        assert flat[q][2] == len(cand), (q, flat[q][2], len(cand))
+        n_in = sum(lo <= date_of[int(d)] <= hi for d in cand.tolist())
+        assert flat[rq][2] == n_in, (rq, flat[rq][2], n_in)
+    for q in mixed:
+        check(q, flat[q])
+
+    # the one-shot device route: the filtered, then the sorted queries
+    di = engine.get_device_index(coll)
+    launches = {}
+    for name, batch in (("range", qs["range"]),
+                        ("sort", qs["sort"] + qs["sortrev"])):
+        routes0, esc0 = dict(di.route_counts), di.escalations
+        reset_counts()
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pages = engine.search_device_batch(coll, batch, **SC)
+        secs = time.perf_counter() - t0
+        k1 = msk.launches if on_card else msk.plain_calls
+        k2 = (fdk.launches_tail + fdk.launches_notail) if on_card \
+            else fdk.plain_calls
+        plain = (msk.plain_calls + fdk.plain_calls) if on_card else 0
+        routes = {k: di.route_counts[k] - routes0[k] for k in routes0}
+        esc = di.escalations - esc0
+        for q, res in zip(batch, pages):
+            assert_tie_run_parity(as_raw(res), flat[q], q)
+        assert routes["f1"] > 0 and routes["fd"] > 0, (name, routes)
+        assert k1 > 0 and k2 > 0 and plain == 0, (name, k1, k2, plain)
+        launches[name] = (k1, k2)
+        out[f"one_shot_{name}"] = dict(
+            queries=len(batch), ms=secs * 1e3, routes=routes,
+            escalations=esc, k1_launches=k1, k2_launches=k2)
+        log(f"[numeric] one-shot batch of {len(batch)} {name} queries: "
+            f"{secs * 1e3:.1f} ms; routes {routes}, escalations {esc}; K1 "
+            f"launches {k1}, K2 launches {k2}, plain calls {plain}; every "
+            f"page equals the flat path's ({card})")
+
+    # the resident loop: one batch of the 64 mixed specs
+    reset_counts()
+    t0 = time.perf_counter()
+    rpages = engine.search_device_batch(coll, mixed, resident=True, **SC)
+    out["resident_mixed_ms"] = (time.perf_counter() - t0) * 1e3
+    for q, res in zip(mixed, rpages):
+        assert_tie_run_parity(as_raw(res), flat[q], q)
+    out["resident_launches"] = (
+        (msk.launches, fdk.launches_tail + fdk.launches_notail) if on_card
+        else (msk.plain_calls, fdk.plain_calls))
+    assert min(out["resident_launches"]) > 0, out["resident_launches"]
+
+    # /search: the 64 mixed specs from 16 clients at once, each page equal
+    # to the in-process resident page with the server's defaults
+    coll.conf.result_cache_ttl = 0
+    engine.search_device_batch(coll, mixed, topk=10, resident=True)
+    ref = {q: render_results(r, "json")[0] for q, r in zip(
+        mixed, engine.search_device_batch(coll, mixed, topk=10,
+                                          resident=True))}
+    srv = SearchHTTPServer(work / "cuda", port=0, device=coll.device,
+                           colldb=colldb)
+    srv.start()
+    try:
+        reset_counts()
+        b0 = (srv._batcher.batches, srv._batcher.batched_queries)
+        wall, lat, served = http_clients(f"http://127.0.0.1:{srv.port}",
+                                         mixed, 16, coll.name)
+        nb = srv._batcher.batches - b0[0]
+        nq = srv._batcher.batched_queries - b0[1]
+        kl = ((msk.launches, fdk.launches_tail + fdk.launches_notail)
+              if on_card else (msk.plain_calls, fdk.plain_calls))
+    finally:
+        srv.stop()
+    for q in mixed:
+        assert_pages_match(served[q], ref[q], q)
+        page = json.loads(served[q])
+        check(q, (np.array([r["docId"] for r in page["results"]],
+                           np.uint64),))
+    assert min(kl) > 0, kl
+    out["served"] = dict(qps=len(mixed) / wall, p50_ms=statistics.median(
+        lat), max_ms=max(lat), batches=nb, mean_batch=nq / nb,
+        k1_launches=kl[0], k2_launches=kl[1])
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[numeric] date range [{lo!r}, {hi!r}] (the 25th and 75th "
+        f"percentiles of {len(dates)} dates); flat path ms per 16 "
+        f"queries {out['flat_ms']}; resident batch of the "
+        f"{len(mixed)} mixed specs {out['resident_mixed_ms']:.1f} ms (K1/K2"
+        f" launches {out['resident_launches']}); /search from 16 clients "
+        f"{out['served']['qps']:.2f} qps, p50 {out['served']['p50_ms']:.2f}"
+        f" ms, {nb} batches (mean {nq / nb:.2f} queries), K1/K2 launches "
+        f"{kl}; every page equal, every date in range and in order; phase"
+        f" {out['phase_s']:.1f} s ({card})")
+    return out
+
+
+def route_corpus(base, device):
+    """(5f) the route corpus (``route_docs(48)`` under ``ROUTE_ENV``) with
+    the collection's record set: a tagdb siterank override on one site,
+    a ``sitepathdepth`` tag on a hosting host with two user directories,
+    a catdb category on two sites, and two pages linking to each other
+    (their anchor text reaches the device index as inlink postings).
+    F1, FD and F2 each serve plain, filtered and sorted queries on
+    ``device`` with results and escalation counts equal to the same
+    index on ``device="cpu"``. Returns the routes and escalations."""
+    from open_source_search_engine_tpu_torch.build import docproc
+    from open_source_search_engine_tpu_torch.corpus import (
+        ROUTE_ENV, ROUTE_QUERIES, assert_tie_run_parity, route_docs)
+    from open_source_search_engine_tpu_torch.index.collection import \
+        Collection
+    from open_source_search_engine_tpu_torch.query.devindex import \
+        DeviceIndex
+
+    saved = {k: os.environ.get(k) for k in ROUTE_ENV}
+    os.environ.update(ROUTE_ENV)
+    try:
+        rc = Collection("route", base, device=device)
+        rc.tagdb.set_tag("mesh3.test", "siterank", 9)
+        rc.tagdb.set_tag("users.test", "sitepathdepth", 1)
+        rc.catdb.load_tree("1\t0\tTop\n2\t1\tTop/Sub\n")
+        for site in ("mesh5.test", "mesh6.test"):
+            rc.catdb.assign(site, 2)
+        extra = [("http://users.test/~ann/p", "<p>alpha hosted ann</p>"),
+                 ("http://users.test/~bo/p", "<p>alpha hosted bo</p>"),
+                 ("http://linka.test/", '<p>alpha <a href="http://linkb.'
+                  'test/">omega anchor</a></p>'),
+                 ("http://linkb.test/", '<p>beta <a href="http://linka.'
+                  'test/">omega return</a></p>')]
+        docproc.index_batch(rc, route_docs(48) + extra)
+        rc.posdb.dump()
+        rc.titledb.dump()
+        assert rc.linkdb.inlinks_for_url("linkb.test", "http://linkb.test/")
+        rq = list(ROUTE_QUERIES) + [
+            "alpha gamma", "alpha beta gamma", "omega", "anchor",
+            "alpha gbmin:catid:2 gbmax:catid:2",
+            "alpha beta gbmin:catid_top:1 gbmax:catid_top:1",
+            "boxes dogs gbsortby:date", "zeta gbsortbyrev:date",
+            "alpha beta gbsortby:date", "site:users.test/~ann/ alpha"]
+        on_dev, on_cpu = DeviceIndex(rc), DeviceIndex(rc, device="cpu")
+        got, want = on_dev.search_batch(rq, topk=64), \
+            on_cpu.search_batch(rq, topk=64)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    assert on_dev.route_counts == on_cpu.route_counts, \
+        (on_dev.route_counts, on_cpu.route_counts)
+    assert min(on_dev.route_counts.values()) >= 1, on_dev.route_counts
+    # F1's sparse sum folds its rows in a fixed order on every device, so
+    # the card escalates exactly where the CPU does
+    assert on_dev.escalations == on_cpu.escalations >= 1, \
+        (on_dev.escalations, on_cpu.escalations)
+    for q, a, b in zip(rq, got, want):
+        assert_tie_run_parity(a, b, q)
+    for q, n in (("omega", 2), ("anchor", 2),
+                 ("alpha gbmin:catid:2 gbmax:catid:2", 4),
+                 ("site:users.test/~ann/ alpha", 1)):
+        assert want[rq.index(q)][2] == n, (q, want[rq.index(q)][2])
+    log(f"[route] route_docs(48) + {len(extra)} pages with tagdb, catdb "
+        f"and inlinks: routes {on_dev.route_counts}, escalations "
+        f"{on_dev.escalations} (CPU {on_cpu.escalations}); "
+        f"{device.upper()} == CPU")
+    return {"routes": dict(on_dev.route_counts),
+            "escalations": on_dev.escalations}
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -755,8 +998,10 @@ def main() -> int:
         docproc.index_batch(coll, chunk)
     coll.dump_all()
     t_index = time.perf_counter() - t0
+    coll_rate = coll.num_docs / t_index
     log(f"[index] {coll.num_docs} docs in {t_index:.1f} s "
-        f"({coll.num_docs / t_index:.1f} docs/s)")
+        f"({coll_rate:.1f} docs/s, every page with its date fielddb "
+        f"record; {smi})")
     assert coll.num_docs == N_DOCS, coll.num_docs
 
     queries = make_queries(N_QUERIES, seed=1234)
@@ -1289,38 +1534,12 @@ def main() -> int:
     g_residency.reset()
     coll._device_index = None
 
-    # the route corpus: F1, FD and F2 each serve a query, on the card as
-    # on the CPU
-    saved = {k: os.environ.get(k) for k in ROUTE_ENV}
-    os.environ.update(ROUTE_ENV)
-    try:
-        rc = Collection("route", work / "route", device="cuda")
-        docproc.index_batch(rc, route_docs(48))
-        rc.posdb.dump()
-        rc.titledb.dump()
-        rq = list(ROUTE_QUERIES) + ["alpha gamma", "alpha beta gamma"]
-        on_card, on_cpu = DeviceIndex(rc), DeviceIndex(rc, device="cpu")
-        got, want = on_card.search_batch(rq, topk=64), \
-            on_cpu.search_batch(rq, topk=64)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    assert on_card.route_counts == on_cpu.route_counts, \
-        (on_card.route_counts, on_cpu.route_counts)
-    assert min(on_card.route_counts.values()) >= 1, on_card.route_counts
-    # F1's float32 bound scatter-add takes atomics on the card, so its sum
-    # order (and, at a last-bit tie, an escalation) may vary from run to
-    # run: escalation counts are compared on the CPU only (the tests)
-    assert on_card.escalations >= 1, on_card.escalations
-    for q, a, b in zip(rq, got, want):
-        assert_tie_run_parity(a, b, q)
-    log(f"[route] route_docs(48): routes {on_card.route_counts}, "
-        f"escalations {on_card.escalations} (CPU {on_cpu.escalations}); "
-        "CUDA == CPU")
-    del on_card, on_cpu
+    numeric = numeric_operators(colldb, coll, queries, work, reset_counts,
+                                smi)
+    g_residency.reset()
+    coll._device_index = None
+
+    route = route_corpus(work / "route", "cuda")
 
     # ---- 6. golden QA on the card ----
     import importlib.util
@@ -1361,6 +1580,11 @@ def main() -> int:
                     ":173",
         "launches": res_k1, "launches_one_shot_batch": k1_dev,
         "launches_served": served["k1_launches"],
+        "launches_numeric": {
+            "one_shot_range": numeric["launches"]["range"][0],
+            "one_shot_sorted": numeric["launches"]["sort"][0],
+            "resident_mixed": numeric["resident_launches"][0],
+            "served_mixed": numeric["served"]["k1_launches"]},
         "max_abs_err": max_err,
         "ms": k1d_ms, "parent_ms": k1d_par, "plain_ms": k1d_plain_ms,
         "bound_ms": k1d_b_ms,
@@ -1384,6 +1608,11 @@ def main() -> int:
                     ":226",
         "launches": res_k2, "launches_one_shot_batch": k2_launches,
         "launches_served": served["k2_launches"],
+        "launches_numeric": {
+            "one_shot_range": numeric["launches"]["range"][1],
+            "one_shot_sorted": numeric["launches"]["sort"][1],
+            "resident_mixed": numeric["resident_launches"][1],
+            "served_mixed": numeric["served"]["k2_launches"]},
         "launches_tail_notail": list(k2_split),
         "max_abs_err": k2_err, "ms": k2_ms, "parent_ms": k2_par,
         "plain_ms": k2_plain_ms,
@@ -1409,7 +1638,8 @@ def main() -> int:
         "oracle_build_s": t_oracle,
         "device_build_peak_gib": build_peak / 2**30,
         "device_build_spans_s": build_spans, "resident": resident,
-        "served": served}}
+        "served": served, "numeric": numeric, "route_corpus": route,
+        "index_docs_s": coll_rate}}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(smi)

@@ -9,7 +9,8 @@ queries score on. ``serve`` runs the node's HTTP server until SIGINT or
 SIGTERM, then stops it and saves every open collection (its runs, doc
 count, speller and conf), so a restart answers the same; the reference's
 autosave clock and daily merge are not carried. ``inject`` dumps the
-collection after indexing, so a later process reads it back.
+collection after indexing, so a later process reads it back, and exits 1
+with ``"error": "banned"`` when a tagdb ``manualban`` drops the page.
 """
 
 from __future__ import annotations
@@ -66,6 +67,9 @@ def cmd_inject(args) -> int:
                if args.file else sys.stdin.read())
     ml = docproc.index_document(coll, args.url, content)
     coll.dump_all()
+    if ml is None:  # tagdb manualban
+        print(json.dumps({"injected": args.url, "error": "banned"}))
+        return 1
     print(json.dumps({"injected": args.url, "docid": int(ml.docid),
                       "docs": coll.num_docs}))
     return 0

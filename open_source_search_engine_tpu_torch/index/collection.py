@@ -2,13 +2,14 @@
 dictionary and the device its queries score on; :class:`CollectionDb`,
 the registry of a node's collections.
 
-Reference: ``Collectiondb.cpp/h`` (``Collectiondb.h:39``). This copy
-owns posdb (positional index, dataless 18-byte keys), titledb (doc
-records), clusterdb (site/lang meta) and sectiondb (boilerplate votes),
+Reference: ``Collectiondb.cpp/h`` (``Collectiondb.h:39``). A
+collection owns posdb (positional index, dataless 18-byte keys), titledb
+(doc records), clusterdb (site/lang meta), linkdb (the link graph and
+inlink anchor text), tagdb (per-site tags), sectiondb (boilerplate
+votes), fielddb (numeric fields) and catdb (the directory taxonomy),
 plus the doc counter ranking needs (``Posdb.cpp:1225`` numDocsInColl)
-and the speller's word popularity. Not carried: linkdb, tagdb, fielddb
-and catdb, and the memtable save of ``save()`` (rdblite has no journal
-yet, so ``save()`` dumps).
+and the speller's word popularity. Not carried: the memtable save of
+``save()`` (rdblite has no journal yet, so ``save()`` dumps).
 """
 
 from __future__ import annotations
@@ -22,10 +23,14 @@ import torch
 
 from ..device import resolve_device
 from ..query.speller import Speller
+from ..spider.linkdb import Linkdb
 from ..utils.log import get_logger
 from ..utils.parms import CollectionConf
 from . import clusterdb, posdb, rdblite, titledb
+from .catdb import Catdb
+from .fielddb import Fielddb
 from .sectiondb import Sectiondb
+from .tagdb import Tagdb
 
 log = get_logger("collection")
 
@@ -89,7 +94,11 @@ class Collection:
                                    has_data=True)
         self.clusterdb = rdblite.Rdb("clusterdb", self.dir,
                                      clusterdb.KEY_DTYPE)
+        self.linkdb = Linkdb(self.dir)
+        self.tagdb = Tagdb(self.dir)
         self.sectiondb = Sectiondb(self.dir)
+        self.fielddb = Fielddb(self.dir)
+        self.catdb = Catdb(self.dir)
         self.speller = Speller(self.dir)
         self._stats_path = self.dir / "collstats.json"
         self.num_docs = 0
@@ -102,9 +111,14 @@ class Collection:
         self.termlist_cache = TermlistCache()
 
     def rdbs(self) -> dict[str, rdblite.Rdb]:
+        """Every named Rdb this collection owns (the per-collection
+        RdbBase set): ``dump_all`` and ``save`` persist each of them."""
         return {"posdb": self.posdb, "titledb": self.titledb,
-                "clusterdb": self.clusterdb,
-                "sectiondb": self.sectiondb.rdb}
+                "clusterdb": self.clusterdb, "linkdb": self.linkdb.rdb,
+                "tagdb": self.tagdb.rdb,
+                "sectiondb": self.sectiondb.rdb,
+                "fielddb": self.fielddb.rdb,
+                "catdb": self.catdb.rdb}
 
     def doc_added(self, n: int = 1) -> None:
         self.num_docs += n

@@ -37,17 +37,24 @@ batches in flight collects the first without waiting for the second.
 
 Plans: ``issue_batch`` keeps each query's ResidentPlan on the cache
 plane (``devindex.plan.<collection>``), keyed on (raw, lang) and
-generation-keyed on the posdb version, so a repeated query skips the
-host planning pass until a write. An escalation widens a cached plan's
-``kappa_min``/``k2_min`` in place, so a hot query's learned floor
-persists, as in the reference.
+generation-keyed on the posdb and fielddb versions, so a repeated query
+skips the host planning pass until a write. An escalation widens a
+cached plan's ``kappa_min``/``k2_min`` in place, so a hot query's
+learned floor persists, as in the reference.
 
 Guardrails (``devcheck``, opt-in): the top-k invariants on every emitted
 wave row, and cube sanity on the resident cube before each FD wave.
 
-Not carried in this slice: the base-column disk cache, the telemetry
-plane, and the ``gbmin:``/``gbmax:``/``gbsortby:`` columns (queries
-using them raise, as the packer's do).
+Numeric operators (``gbmin:``/``gbmax:``/``gbsortby:``): the fielddb
+columns become a ``[D_cap]`` range mask and a ``[D_cap]`` sort key, built
+on the host (the key in float64, cast to float32 once) and kept on the
+device per (spec, fielddb version). A wave never mixes specs: the mask
+gates the match of every route, and under ``gbsortby:`` the key is the
+score (in F1 it is also the phase-1 bound, so a sorted query escalates
+only where the top-8-per-block selection misses a key).
+
+Not carried in this slice: the base-column disk cache and the telemetry
+plane.
 Every tensor lives on ``self.device`` (the collection's device unless
 given); the wrappers of K1 and K2 pick the kernel or its plain version
 by that device.
@@ -321,6 +328,27 @@ def _out_rows(nm, missed, idx, scores) -> torch.Tensor:
                       scores.contiguous().view(torch.int32)], dim=1)
 
 
+def _fold_rows(n_out: int, tgt: torch.Tensor,
+               val: torch.Tensor) -> torch.Tensor:
+    """``[B, n_out]`` float32 sums of ``val`` ``[B, R, L]`` at ``tgt``,
+    folded one row at a time in row order. A sparse row is one term's doc
+    run, so its targets are distinct (masked lanes add +0.0 to a dropped
+    sentinel): every add is exact and collision free, and the sum at a
+    target is taken in row order on every device, which is the order of
+    one flat ``scatter_add_`` on the CPU. On the card a flat scatter-add
+    sums in the order its atomics land."""
+    out = torch.zeros((tgt.shape[0], n_out), dtype=torch.float32,
+                      device=tgt.device)
+    for r in range(tgt.shape[1]):
+        out.scatter_add_(1, tgt[:, r], val[:, r])
+    return out
+
+
+def _spec(p) -> tuple:
+    """A plan's numeric-operator spec: the waves partition on it."""
+    return (p.filters, p.sortby, p.sort_base)
+
+
 class _DeltaOverflow(Exception):
     def __init__(self, needed_docs: int = 0, needed_cols: int = 0):
         self.needed_docs = needed_docs
@@ -379,10 +407,11 @@ class ResidentPlan:
     g_qsyn: np.ndarray | None = None     # uint32 [T, 4] synonym flags
     #: True only for boolean queries (the truth-table gate runs only then)
     has_table: bool = False
-    #: gbmin:/gbmax:/gbsortby: state — always empty here: the planner
-    #: raises on those operators (fielddb is not carried yet)
+    #: gbmin:/gbmax:/gbsortby: state; waves group by identical specs, the
+    #: [D] filter and sort columns being per-wave arguments
     filters: tuple = ()
     sortby: tuple | None = None
+    #: shift of the sort keys (they must stay positive for the match gate)
     sort_base: float = 0.0
     #: number of scored ∧ counted groups (routing, k2 and κ key on it)
     n_scored: int = 0
@@ -430,13 +459,17 @@ class DeviceIndex:
         self.route_counts = {"f1": 0, "fd": 0, "f2": 0}
         #: resident-plan cache (the termlist-cache role, RdbCache): the
         #: host planning pass repeats byte-identically for a repeated
-        #: query until a write moves posdb. The reference keys on the
-        #: fielddb version too; the port has no fielddb yet.
-        posdb_rdb = coll.posdb
+        #: query until a write moves posdb or fielddb (a plan carries its
+        #: filter spec and sort base)
+        posdb_rdb, fielddb_rdb = coll.posdb, coll.fielddb.rdb
         self._plan_cache = g_cacheplane.register(
             f"devindex.plan.{coll.name}", ttl_s=300.0, max_entries=2048,
-            gen_fn=lambda: posdb_rdb.version,
+            gen_fn=lambda: (posdb_rdb.version, fielddb_rdb.version),
             desc="resident query plans (termlist-cache role)")
+        #: fielddb columns and per-spec wave columns (re-derived when the
+        #: doc axis moves)
+        self._fcols: dict = {}
+        self._fswave: dict = {}
         self.refresh()
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
@@ -478,6 +511,8 @@ class DeviceIndex:
             return False
         self._sitehash = None    # clusterdb view refreshes lazily
         self._docid_sorted = None
+        self._fcols = {}         # fielddb columns re-derive
+        self._fswave = {}
         fp = base_fingerprint(rdb)
         if fp != self._base_fp:
             self._build_base(fp)
@@ -937,6 +972,67 @@ class DeviceIndex:
         rows, ok = self._docid_pos(np.array([docid], np.uint64))
         return int(lg[rows[0]]) if ok[0] else 0
 
+    # --- fielddb columns (gbmin/gbmax/gbsortby: the datedb role) ---------
+
+    def _field_col(self, fld: str) -> np.ndarray:
+        """Dense float64 [n_docs] column of one field aligned to
+        all_docids (NaN = the doc has no value), cached per fielddb
+        version."""
+        ver = self.coll.fielddb.rdb.version
+        hit = self._fcols.get((fld, ver))
+        if hit is not None:
+            return hit
+        docids, vals = self.coll.fielddb.column(fld)
+        col = np.full(len(self.all_docids), np.nan)
+        if len(docids):
+            rows, ok = self._docid_pos(docids)
+            col[rows[ok]] = vals[ok]
+        if len(self._fcols) > 32:
+            self._fcols.clear()
+        self._fcols[(fld, ver)] = col
+        return col
+
+    def sort_base_of(self, fld: str, desc: bool) -> float | None:
+        """This index's minimum finite sort key of a field (v descending,
+        -v ascending); None without a finite value."""
+        col = self._field_col(fld)
+        key = col if desc else -col
+        fin = np.isfinite(key)
+        return float(key[fin].min()) if fin.any() else None
+
+    def _filter_sort_cols(self, p: ResidentPlan):
+        """(d_filter bool [D_cap] or None, d_sort float32 [D_cap] or None)
+        for one wave, kept on the device per (spec, fielddb version).
+        The filter ANDs every field's range (NaN fails both bounds); the
+        sort key is ``key - sort_base + 1`` in float64 (0.25 for a
+        missing field), cast to float32 once."""
+        ck = (_spec(p), self.coll.fielddb.rdb.version)
+        hit = self._fswave.get(ck)
+        if hit is not None:
+            return hit
+        d_filter = d_sort = None
+        if p.filters:
+            mask = np.ones(len(self.all_docids), bool)
+            for fld, (lo, hi) in p.filters:
+                col = self._field_col(fld)
+                with np.errstate(invalid="ignore"):
+                    mask &= (col >= lo) & (col <= hi)
+            fpad = np.zeros(self.D_cap, bool)
+            fpad[: len(mask)] = mask
+            d_filter = self._put(fpad)
+        if p.sortby is not None:
+            fld, desc = p.sortby
+            col = self._field_col(fld)
+            key = col if desc else -col
+            key = np.where(np.isfinite(key), key - p.sort_base + 1.0, 0.25)
+            spad = np.zeros(self.D_cap, np.float32)
+            spad[: len(key)] = key.astype(np.float32)
+            d_sort = self._put(spad)
+        if len(self._fswave) > 16:
+            self._fswave.clear()
+        self._fswave[ck] = (d_filter, d_sort)
+        return d_filter, d_sort
+
     # --- planning ----------------------------------------------------------
 
     def _druns_of(self, termid: int):
@@ -976,12 +1072,11 @@ class DeviceIndex:
             df += int(self.delta_df[j])
         return max(df, 0)
 
-    def plan(self, qplan: QueryPlan) -> ResidentPlan:
+    def plan(self, qplan: QueryPlan, sort_base_of=None) -> ResidentPlan:
         """The host plan of one query: its dense, sparse, cube and
-        posting-scatter rows, group flags and route eligibility."""
-        if qplan.filters or qplan.sortby is not None:
-            raise ValueError("gbmin:/gbmax:/gbsortby: need fielddb, which "
-                             "this package does not carry yet")
+        posting-scatter rows, group flags, route eligibility and numeric
+        operators. ``sort_base_of`` overrides this index's sort-key base
+        (a mesh passes the cluster-wide minimum)."""
         T = _bucket(max(len(qplan.groups), 1), T_FLOOR)
         drows, srows, crows, prows = [], [], [], []
         dfs = np.zeros(max(len(qplan.groups), 1), np.int64)
@@ -1111,7 +1206,12 @@ class DeviceIndex:
             driver_df=0 if driver_df == 1 << 60 else int(driver_df),
             n_scored=int(np.sum(counts)),
             direct_ok=direct_ok, g_quarter=g_quarter, g_qsyn=g_qsyn,
-            has_table=qplan.bool_table is not None)
+            has_table=qplan.bool_table is not None,
+            filters=tuple(sorted(
+                (f, tuple(v)) for f, v in qplan.filters.items())),
+            sortby=qplan.sortby,
+            sort_base=(((sort_base_of or self.sort_base_of)(*qplan.sortby)
+                        or 0.0) if qplan.sortby is not None else 0.0))
 
     # --- execution -------------------------------------------------------
 
@@ -1197,7 +1297,8 @@ class DeviceIndex:
         wave's output at once."""
         waves = []
         with trace.span("devindex.issue"):
-            groups: dict[tuple[int, int], list[int]] = {}
+            # waves never mix filter/sort specs: the columns are per-wave
+            groups: dict[tuple, list[int]] = {}
             for i in f1:
                 kapi = self._kappa_of(plans[i], topk)
                 # phase-2 truncation to the top-k2 by bound is sound in
@@ -1208,8 +1309,11 @@ class DeviceIndex:
                     k2i = min(max(k2v, plans[i].k2_min), kapi)
                 else:
                     k2i = kapi
-                groups.setdefault((kapi, k2i), []).append(i)
-            for (kappa, k2g), idxs in sorted(groups.items()):
+                groups.setdefault((kapi, k2i, _spec(plans[i])),
+                                  []).append(i)
+            for (kappa, k2g, _), idxs in sorted(
+                    groups.items(), key=lambda kv: (*kv[0][:2],
+                                                    str(kv[0][2]))):
                 # terminal rungs chunk small: the [B, T, P, k2] phase-2
                 # intermediates stay bounded at k2 = D_cap
                 step = self._f1_bmax() if k2g <= 32 * KAPPA_FLOOR \
@@ -1232,19 +1336,27 @@ class DeviceIndex:
                 return 512 if ml <= 512 else (
                     F2_LPOST_FLOOR if ml <= F2_LPOST_FLOOR
                     else F2_SCATTER_MAX)
+            # F2 and FD waves partition by (Lp, spec) and spec
             fd_parts: dict = {}
             for i in fd:
-                fd_parts.setdefault(_lp_of(i), []).append(i)
+                fd_parts.setdefault((_lp_of(i), _spec(plans[i])),
+                                    []).append(i)
             fd_step = self._fd_bmax()
-            for _, idxs in sorted(fd_parts.items()):
+            for _, idxs in sorted(fd_parts.items(),
+                                  key=lambda kv: (kv[0][0], str(kv[0][1]))):
                 for a in range(0, len(idxs), fd_step):
                     chunk = idxs[a:a + fd_step]
                     waves.append(("f2", 0, k2v, chunk, self._run_batch_fd(
                         [plans[i] for i in chunk], k2v, f2_nsel)))
-            for a in range(0, len(fg), bmax):
-                chunk = fg[a:a + bmax]
-                waves.append(("f2", 0, k2v, chunk, self._run_batch_f2(
-                    [plans[i] for i in chunk], k2v, f2_nsel)))
+            fg_parts: dict = {}
+            for i in fg:
+                fg_parts.setdefault(_spec(plans[i]), []).append(i)
+            for _, idxs in sorted(fg_parts.items(),
+                                  key=lambda kv: str(kv[0])):
+                for a in range(0, len(idxs), bmax):
+                    chunk = idxs[a:a + bmax]
+                    waves.append(("f2", 0, k2v, chunk, self._run_batch_f2(
+                        [plans[i] for i in chunk], k2v, f2_nsel)))
         return waves
 
     def _queue_fetch(self, outs: list[torch.Tensor]) -> tuple:
@@ -1437,6 +1549,21 @@ class DeviceIndex:
         cube.index_add_(0, tgt, torch.where(ok, pay, 0).reshape(-1))
         return cube
 
+    def _finish(self, p: ResidentPlan, match, ms, qlang, k2: int,
+                n_sel: int):
+        """F2/FD finish: the wave's range gate, the score (the sort key
+        under gbsortby), then the selection."""
+        d_filter, d_sort = self._filter_sort_cols(p)
+        if d_filter is not None:
+            match = match & d_filter
+        if d_sort is not None:
+            final = torch.where(match, d_sort, 0.0)
+        else:
+            final = torch.where(
+                match, ms * final_multipliers(self.d_siterank,
+                                              self.d_doclang, qlang), 0.0)
+        return self._select(final, match.sum(dim=1), k2, n_sel)
+
     def _select(self, final, nm, k2: int, n_sel: int):
         """F2/FD selection: block winners, then an exact top-k2 over them;
         the packed rows."""
@@ -1461,6 +1588,7 @@ class DeviceIndex:
         freqw, required, negative, counts, table, qlang = \
             self._query_state(plans, T)
         use_table = any(p.has_table for p in plans)
+        d_filter, d_sort = self._filter_sort_cols(plans[0])
         t_ax = torch.arange(T, device=dev)
         live = ~self.d_dead
 
@@ -1486,8 +1614,9 @@ class DeviceIndex:
         else:
             ubb = torch.zeros((B, T, D), dtype=torch.float32, device=dev)
 
-        # ---- phase 1: sparse rows, one gather + scatter-add into
-        # [T, D]; base lanes of dead docs drop at gather time
+        # ---- phase 1: sparse rows, one gather, then a fold into [T, D]
+        # one row at a time in row order; base lanes of dead docs drop at
+        # gather time
         s_start = self._stack(plans, "s_start", Rs, 0, np.int64)
         s_len = self._stack(plans, "s_len", Rs, 0, np.int64)
         s_group = self._stack(plans, "s_group", Rs, 0, np.int64)
@@ -1500,9 +1629,8 @@ class DeviceIndex:
         sdead = self.d_dead[sdoc.clamp(0, D - 1)]
         skeep = smask & ~(s_isbase[:, :, None] & sdead)
         tgt = torch.where(skeep, s_group[:, :, None] * D + sdoc, T * D)
-        ubs = torch.zeros((B, T * D + 1), dtype=torch.float32, device=dev)
-        ubs.scatter_add_(1, tgt.view(B, -1),
-                         torch.where(skeep, simp, 0.0).view(B, -1))
+        sval = torch.where(skeep, simp, 0.0)
+        ubs = _fold_rows(T * D + 1, tgt, sval)
         ub = ubb * live + ubs[:, :T * D].view(B, T, D)
         # each sparse row's runstart and count per doc, for phase 2
         rstgt = torch.where(
@@ -1521,6 +1649,8 @@ class DeviceIndex:
         ubw = ub * (freqw * freqw)[:, :, None]
         alive = (match_gates(present, required, negative, table, use_table)
                  & (torch.arange(D, device=dev) < self.n_docs))
+        if d_filter is not None:
+            alive = alive & d_filter  # the gbmin:/gbmax: range gate
         m1 = present & counts[:, :, None]
         ubw_m = torch.where(m1, ubw, BIG)
         min_single_ub = ubw_m.amin(dim=1)
@@ -1548,7 +1678,12 @@ class DeviceIndex:
                               min_single_ub)
         ubmin = torch.where(m1.any(dim=1), ubmin, 1.0)
         mult = final_multipliers(self.d_siterank, self.d_doclang, qlang)
-        ubfinal = torch.where(alive, ubmin * mult * 1.00001, 0.0)
+        if d_sort is not None:
+            # gbsortby: the per-doc bound is the exact sort key; a miss
+            # can come only from the top-8-per-block selection
+            ubfinal = torch.where(alive, d_sort, 0.0)
+        else:
+            ubfinal = torch.where(alive, ubmin * mult * 1.00001, 0.0)
         nm = alive.sum(dim=1)
 
         # ---- candidates: top-8 per block, then the top-k2 by bound;
@@ -1610,8 +1745,11 @@ class DeviceIndex:
         min_sc, present2 = min_scores(cube, pv, freqw, counts)  # [B, T, κ]
         match2 = (match_gates(present2, required, negative, table, use_table)
                   & (cval > 0.0) & (min_sc < BIG))
-        final = torch.where(match2, min_sc * torch.gather(mult, 1, cand),
-                            0.0)
+        if d_sort is not None:
+            final = torch.where(match2, d_sort[cand], 0.0)
+        else:
+            final = torch.where(match2,
+                                min_sc * torch.gather(mult, 1, cand), 0.0)
         ts, tl = top_k(final, k2)
         return _out_rows(nm, ub_missed, torch.gather(cand, 1, tl), ts)
 
@@ -1662,10 +1800,7 @@ class DeviceIndex:
                         any(p.has_table for p in plans))
                  & (torch.arange(D, device=dev) < self.n_docs)
                  & (ms < BIG))
-        final = torch.where(
-            match, ms * final_multipliers(self.d_siterank, self.d_doclang,
-                                     qlang), 0.0)
-        return self._select(final, match.sum(dim=1), k2, n_sel)
+        return self._finish(plans[0], match, ms, qlang, k2, n_sel)
 
     def _run_batch_fd(self, plans: list[ResidentPlan], k2: int,
                       n_sel: int):
@@ -1704,7 +1839,4 @@ class DeviceIndex:
                         any(p.has_table for p in plans))
                  & (torch.arange(D, device=dev) < self.n_docs)
                  & (ms < BIG))
-        final = torch.where(
-            match, ms * final_multipliers(self.d_siterank, self.d_doclang,
-                                     qlang), 0.0)
-        return self._select(final, match.sum(dim=1), k2, n_sel)
+        return self._finish(plans[0], match, ms, qlang, k2, n_sel)

@@ -17,8 +17,9 @@ Reference seam: ``Msg2::getLists`` (one RdbList per query term,
 Docid-range multipass (``Msg39.cpp:277-305``): callers cap ``max_docs``
 and the engine runs one pass per candidate slice.
 
-The numeric operators (``gbmin:``/``gbmax:``/``gbsortby:``) need fielddb,
-which this port does not carry yet; queries using them raise.
+The numeric operators (``gbmin:``/``gbmax:``/``gbsortby:``) read the
+fielddb columns on the host: a boolean range mask and a positive sort
+key per candidate, formed in float64 and cast to float32 once.
 """
 
 from __future__ import annotations
@@ -126,6 +127,11 @@ class PackedQuery:
     doclang: np.ndarray       # int32 [D_pad]
     n_docs: int               # real candidate count (≤ D_pad)
     qlang: int
+    #: numeric-operator columns (gbmin/gbmax/gbsortby): the range mask
+    #: and the positive sort keys over the candidate axis; None when the
+    #: query has no such operator
+    filt: np.ndarray | None = None      # bool [D_pad]
+    sortc: np.ndarray | None = None     # float32 [D_pad]
 
 
 @dataclass
@@ -218,6 +224,9 @@ class PreparedQuery:
     driver: int               # -1 when cand is empty
     freq_weight: np.ndarray   # float32 [len(plan.groups)]
     unique_counts: np.ndarray  # int64 [len(plan.groups)]
+    #: per-candidate numeric-operator arrays, None without the operators
+    filt_all: np.ndarray | None = None
+    sort_all: np.ndarray | None = None
 
 
 def group_flags(plan: QueryPlan, T: int):
@@ -237,12 +246,60 @@ def group_flags(plan: QueryPlan, T: int):
     )
 
 
+def _field_values(coll: Collection, fld: str,
+                  cand: np.ndarray) -> np.ndarray:
+    """Per-candidate float64 field values (NaN = the doc lacks the
+    field) from the fielddb column."""
+    docids, vals = coll.fielddb.column(fld)
+    out = np.full(len(cand), np.nan)
+    if len(docids):
+        pos = np.searchsorted(docids, cand)
+        ok = pos < len(docids)
+        ok[ok] = docids[pos[ok]] == cand[ok]
+        out[ok] = vals[pos[ok]]
+    return out
+
+
+def local_sort_base(coll: Collection, fld: str,
+                    desc: bool) -> float | None:
+    """This collection's minimum finite sort key (v descending, -v
+    ascending): the shift that keeps the float32 keys positive and small
+    (epoch seconds lose whole seconds in float32). None without a finite
+    value."""
+    _, allvals = coll.fielddb.column(fld)
+    av = allvals if desc else -allvals
+    fin = np.isfinite(av)
+    return float(av[fin].min()) if fin.any() else None
+
+
+def field_arrays(coll: Collection, plan: QueryPlan, cand: np.ndarray):
+    """(filt, sortc) candidate arrays for the numeric operators: the AND
+    of every field's range (NaN fails both bounds) and the sort key
+    ``key - base + 1`` (0.25 for a missing field; ``base`` is the
+    collection's minimum key), formed in float64 and cast to float32
+    once."""
+    filt = sortc = None
+    if plan.filters:
+        filt = np.ones(len(cand), bool)
+        for fld, (lo, hi) in plan.filters.items():
+            dv = _field_values(coll, fld, cand)
+            with np.errstate(invalid="ignore"):
+                filt &= (dv >= lo) & (dv <= hi)
+    if plan.sortby is not None:
+        fld, desc = plan.sortby
+        dv = _field_values(coll, fld, cand)
+        key = dv if desc else -dv
+        base = local_sort_base(coll, fld, desc)
+        if base is None:
+            base = 0.0  # no finite values anywhere: every key is 0.25
+        sortc = np.where(np.isfinite(key), key - base + 1.0,
+                         0.25).astype(np.float32)
+    return filt, sortc
+
+
 def prepare_query(coll: Collection, plan: QueryPlan) -> PreparedQuery:
     """Fetch termlists, pick the driver, intersect candidates. ``cand``
     comes back empty when no doc can match (an empty required list)."""
-    if plan.filters or plan.sortby is not None:
-        raise ValueError("gbmin:/gbmax:/gbsortby: need fielddb, which "
-                         "this package does not carry yet")
     lists = fetch_group_lists(coll, plan)
     req = [i for i, g in enumerate(plan.groups)
            if g.required and not g.negative]
@@ -261,9 +318,11 @@ def prepare_query(coll: Collection, plan: QueryPlan) -> PreparedQuery:
             else np.empty(0, np.uint64))
         driver = (max(range(len(lists)), key=lambda i: len(uniques[i]))
                   if lists else -1)
+        fa, sa = field_arrays(coll, plan, cand)
         return PreparedQuery(plan=plan, lists=lists, cand=cand,
                              driver=driver if len(cand) else -1,
-                             freq_weight=freqw, unique_counts=unique_counts)
+                             freq_weight=freqw, unique_counts=unique_counts,
+                             filt_all=fa, sort_all=sa)
 
     if not req or any(not len(uniques[i]) for i in req):
         return PreparedQuery(plan=plan, lists=lists,
@@ -275,8 +334,10 @@ def prepare_query(coll: Collection, plan: QueryPlan) -> PreparedQuery:
     for i in req:
         if i != driver and len(cand):
             cand = cand[np.isin(cand, uniques[i], assume_unique=True)]
+    fa, sa = field_arrays(coll, plan, cand)
     return PreparedQuery(plan=plan, lists=lists, cand=cand, driver=driver,
-                         freq_weight=freqw, unique_counts=unique_counts)
+                         freq_weight=freqw, unique_counts=unique_counts,
+                         filt_all=fa, sort_all=sa)
 
 
 def pack_pass(prep: PreparedQuery, doc_offset: int = 0,
@@ -336,12 +397,12 @@ def pack_pass(prep: PreparedQuery, doc_offset: int = 0,
         per_group.append((didx, payload, slot))
 
     L = _bucket(max_kept, L_FLOOR)
-    return _pack_arrays(prep, cand, per_group, required, negative, scored,
-                        counts, T, D, D_pad, L)
+    return _pack_arrays(prep, cand, doc_offset, per_group, required,
+                        negative, scored, counts, T, D, D_pad, L)
 
 
-def _pack_arrays(prep, cand, per_group, required, negative, scored,
-                 counts, T, D, D_pad, L):
+def _pack_arrays(prep, cand, doc_offset, per_group, required, negative,
+                 scored, counts, T, D, D_pad, L):
     plan, lists = prep.plan, prep.lists
     doc_idx = np.full((T, L), D_pad, dtype=np.int32)  # D_pad = drop row
     payload = np.zeros((T, L), dtype=np.uint32)
@@ -375,10 +436,17 @@ def _pack_arrays(prep, cand, per_group, required, negative, scored,
         filled |= hit
         if plan.bool_table is None:
             break  # driver covers every candidate in conjunctive mode
+    filt = sortc = None
+    if prep.filt_all is not None:
+        filt = np.zeros(D_pad, bool)
+        filt[:D] = prep.filt_all[doc_offset:doc_offset + D]
+    if prep.sort_all is not None:
+        sortc = np.zeros(D_pad, np.float32)
+        sortc[:D] = prep.sort_all[doc_offset:doc_offset + D]
     return PackedQuery(
         doc_idx=doc_idx, payload=payload, slot=slot, valid=valid,
         freq_weight=_pad1(prep.freq_weight, T, 0.5),
         required=required, negative=negative, scored=scored,
         counts=counts, table=pad_table(plan.bool_table),
         cand_docids=cand, siterank=siterank, doclang=doclang,
-        n_docs=D, qlang=plan.lang)
+        n_docs=D, qlang=plan.lang, filt=filt, sortc=sortc)

@@ -6,7 +6,9 @@ groups × P position slots × D candidate docs, doc axis minor); the
 min-score chain scores it (the hand-written CUDA kernel on the card,
 its plain torch version on the CPU); the match mask, the siterank /
 language multipliers (``Posdb.cpp:7226-7257``) and a stable descending
-sort replace TopTree.
+sort replace TopTree. The numeric operators gate the match mask with a
+range column (``gbmin:``/``gbmax:``) and, under ``gbsortby:``, make a
+sort column the score.
 
 Payloads travel as int32 views of the uint32 words: PyTorch lacks
 shifts and arithmetic on uint32, and decode is shift-then-mask.
@@ -93,11 +95,13 @@ def top_k(final: torch.Tensor, k: int):
 
 def score_cube(cube, pvalid, freq_weight, required, negative, scored,
                counts, table, siterank, doclang, qlang, n_docs,
-               topk: int = 64):
+               topk: int = 64, filt=None, sortc=None):
     """Score the dense position cube. Shapes: cube/pvalid [T, P, D];
     freq_weight/required/negative/scored/counts [T]; table
-    [TABLE_SIZE]; siterank/doclang [D]. Returns (match count, top
-    scores [k], top doc indices [k])."""
+    [TABLE_SIZE]; siterank/doclang [D]; ``filt`` bool [D] (the range
+    gate) and ``sortc`` float32 [D] (the sort keys), each None when the
+    query has no such operator. Returns (match count, top scores [k],
+    top doc indices [k])."""
     T, P, D = cube.shape
     min_score, present = min_scores(cube, pvalid, freq_weight, counts)
     # match: every required group present, no negative present, truth
@@ -105,8 +109,14 @@ def score_cube(cube, pvalid, freq_weight, required, negative, scored,
     in_range = torch.arange(D, device=cube.device) < n_docs
     match = (match_gates(present, required, negative, table)
              & in_range & (min_score < BIG))
-    final = min_score * final_multipliers(siterank, doclang, qlang)
-    final = torch.where(match, final, 0.0)
+    if filt is not None:
+        match = match & filt
+    if sortc is not None:
+        # gbsortby: the positive sort key is the ranking score
+        final = torch.where(match, sortc, 0.0)
+    else:
+        final = min_score * final_multipliers(siterank, doclang, qlang)
+        final = torch.where(match, final, 0.0)
     top_scores, top_idx = top_k(final, min(topk, D))
     return match.sum(), top_scores, top_idx
 
@@ -114,13 +124,18 @@ def score_cube(cube, pvalid, freq_weight, required, negative, scored,
 def score_core(doc_idx, payload, slot, valid, freq_weight, required,
                negative, scored, counts, table, siterank, doclang,
                qlang, n_docs, n_positions: int = MAX_POSITIONS,
-               topk: int = 64):
+               topk: int = 64, filt=None, sortc=None):
     """Host-packed entry: scatter rows (1 row = 1 group), then score."""
     cube, pvalid = scatter_cube(doc_idx, payload, slot, valid,
                                 siterank.shape[0], n_positions)
     return score_cube(cube, pvalid, freq_weight, required, negative,
                       scored, counts, table, siterank, doclang, qlang,
-                      n_docs, topk=topk)
+                      n_docs, topk=topk, filt=filt, sortc=sortc)
+
+
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device,
+                                                       non_blocking=True)
 
 
 def to_device(pq: PackedQuery, device: torch.device) -> list:
@@ -129,8 +144,7 @@ def to_device(pq: PackedQuery, device: torch.device) -> list:
     arrays = [pq.doc_idx, pq.payload.view(np.int32), pq.slot, pq.valid,
               pq.freq_weight, pq.required, pq.negative, pq.scored,
               pq.counts, pq.table, pq.siterank, pq.doclang]
-    return [torch.from_numpy(np.ascontiguousarray(a)).to(
-        device, non_blocking=True) for a in arrays]
+    return [_tensor(a, device) for a in arrays]
 
 
 def run_query(pq: PackedQuery, device: torch.device, topk: int = 64):
@@ -138,7 +152,9 @@ def run_query(pq: PackedQuery, device: torch.device, topk: int = 64):
     ``device``."""
     k = min(topk, len(pq.siterank))
     n_matched, top_scores, top_idx = score_core(
-        *to_device(pq, device), pq.qlang, pq.n_docs, topk=k)
+        *to_device(pq, device), pq.qlang, pq.n_docs, topk=k,
+        filt=None if pq.filt is None else _tensor(pq.filt, device),
+        sortc=None if pq.sortc is None else _tensor(pq.sortc, device))
     scores = top_scores.cpu().numpy()
     idx = top_idx.cpu().numpy()
     keep = scores > 0.0

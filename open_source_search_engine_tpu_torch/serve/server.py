@@ -830,6 +830,8 @@ class SearchHTTPServer:
             query.get("content", "")
         self.stats["injects"] += 1
         ml = docproc.index_document(self._coll(query), url, content)
+        if ml is None:  # tagdb manualban (EDOCBANNED)
+            return _json(403, {"error": "banned by tagdb"})
         return _json(200, {"docId": ml.docid,
                            "numKeys": len(ml.posdb_keys)})
 

@@ -290,3 +290,38 @@ def test_delta_refresh_matches_reference(tmp_path):
     assert tdi.search("rewrittenterm")[2] == 1
     assert tdi.search("number7")[2] == 0
     assert tdi.search("stable")[2] == 32
+
+
+def test_sparse_fold_is_the_flat_scatter_add_sum():
+    """F1's phase-1 sparse sum folds the rows one at a time in row order:
+    on the CPU it is bitwise the flat ``scatter_add_`` it replaces, with
+    targets colliding across rows (synonym and delta rows of one group)
+    and masked lanes on the sentinel."""
+    from open_source_search_engine_tpu_torch.query.devindex import _fold_rows
+    rng = np.random.default_rng(3)
+    B, R, L, n = 4, 9, 64, 300
+    tgt = np.stack([np.stack([rng.permutation(n)[:L] for _ in range(R)])
+                    for _ in range(B)])
+    tgt[rng.random(tgt.shape) < 0.2] = n      # masked lanes: the sentinel
+    val = rng.random((B, R, L)).astype(np.float32) * np.float32(1e3)
+    val[tgt == n] = 0.0
+    t, v = torch.from_numpy(tgt), torch.from_numpy(val)
+    flat = torch.zeros((B, n + 1), dtype=torch.float32)
+    flat.scatter_add_(1, t.view(B, -1), v.view(B, -1))
+    folded = _fold_rows(n + 1, t, v)
+    assert (np.bincount(tgt[0][tgt[0] < n], minlength=n) > 1).any()
+    assert np.array_equal(folded.numpy().view(np.int32),
+                          flat.numpy().view(np.int32))
+
+
+def test_sparse_rows_hold_distinct_docs(pairs):
+    """The fold's premise: every F1 sparse row (a term's base or delta
+    doc run) targets each doc at most once."""
+    for corpus, queries in (("route", ROUTE_SET), ("golden", GOLDEN_QUERIES)):
+        tdi = pairs[corpus][1]
+        doc = tdi.columns()["doc"].numpy()
+        for q in queries:
+            p = tdi.plan(compile_query(q))
+            for a, n in zip(p.s_start, p.s_len):
+                run = doc[a:a + n]
+                assert len(np.unique(run)) == n, (corpus, q, a, n)

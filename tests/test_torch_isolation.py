@@ -56,6 +56,26 @@ code, body, _ = srv.handle("GET", "/search", dict(q="gamma"), b"")
 assert code == 200 and '"totalMatches": 1' in body, body
 srv.stop()
 g_residency.reset()
+from open_source_search_engine_tpu_torch.index import catdb, fielddb, tagdb
+from open_source_search_engine_tpu_torch.spider import linkdb
+d = Collection("rec", tempfile.mkdtemp(), device="cpu")
+d.tagdb.set_tag("ban.test", tagdb.TAG_MANUAL_BAN, 1)
+d.catdb.load_tree(chr(9).join(["1", "0", "Top"]))
+d.catdb.assign("b.test", 1)
+assert docproc.index_document(d, "http://ban.test/", "<p>x</p>") is None
+docproc.index_document(d, "http://b.test/y", '<p><a href="http://c.test/">'
+                       'anchor words</a> epsilon</p>')
+docproc.index_document(d, "http://c.test/", "<p>epsilon zeta</p>")
+assert d.linkdb.inlinks_for_url("c.test", "http://c.test/") == [
+    ("anchor words", 0)]
+assert len(d.fielddb.column(fielddb.DATE_FIELD)[0]) == 2
+for q in ("anchor gbmin:catid:0", "epsilon gbsortby:date",
+          "epsilon gbmin:catid:1 gbmax:catid:1"):
+    assert (engine.search(d, q).total_matches
+            == engine.search_device(d, q).total_matches), q
+assert engine.search_device(d, "epsilon gbmin:catid:1 gbmax:catid:1"
+                            ).total_matches == 1
+assert linkdb.site_rank(3) == 3 and catdb.Catdb
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "open_source_search_engine_tpu"
