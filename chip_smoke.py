@@ -43,7 +43,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    fetch, dense rows, doc meta, cube rows) and the peak allocated
    memory; then build it again through the host oracle
    (``OSSE_DEVBUILD=0``, timed) and hold every column and directory
-   table bitwise equal;
+   table bitwise equal; the oracle writes the run set's disk base cache;
+   the collection's parked tenant cold-starts through the device build
+   (timed), and a DeviceIndex built with the device build off reads the
+   cache (timed, bitwise equal again); each later phase prints which of
+   the three sources built its base;
 
    answer the N_QUERIES queries as one ``engine.search_device_batch``
    batch with every counter reset just before (every FD wave launches
@@ -72,7 +76,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    moved); after ``dump_all()`` ``get_device_index`` returns the old
    index while the rebuild runs (the flag is asserted), a batch is
    served meanwhile, and after the swap the resident answers equal a
-   DeviceIndex built from scratch (columns bitwise);
+   DeviceIndex built from scratch (columns bitwise); at the default
+   process budget no merge was refused and no Rdb holds more than
+   ``max_runs`` runs;
 
    (5d) served over HTTP, the node's entry point: ``SearchHTTPServer``
    over the same collection (the bench collection lives in the port's
@@ -106,6 +112,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and two pages linking to each other) serves plain, filtered and
    sorted F1, FD and F2 queries on the card with results and escalation
    counts equal to the same index on ``device="cpu"``;
+
+   (5g) the durable node over the same collection (``durability``), at
+   the default process budget: a ``save_all()`` adds no run and empties no memtable (run counts and
+   memtable records printed before and after); the collection reopened
+   in process (runs verified with their CRCs, the checkpoint loaded,
+   the journal replayed) answers the queries bitwise as before the save,
+   its open and first batch timed; a forced daily merge of every Rdb
+   while 4 resident clients send the queries, every page equal to the
+   page before it, the merge's seconds and the seconds to the rebuilt
+   base's swap printed, and the swapped index equal to one built from
+   scratch; then a child ``serve`` node on the card takes 16 POST
+   /inject, each answered 200, and is killed with SIGKILL: the restarted
+   node finds each of the 16 and answers all 80 pages as before the
+   kill, its spawn-to-first-page seconds printed. Every wait there has a
+   deadline and the child is killed on any failure;
 6. run the golden QA suite (``tests/golden``) on the card through the
    flat path and through ``search_device``, against
    ``tests/golden/expected.json``;
@@ -811,6 +832,337 @@ def route_corpus(base, device):
             "escalations": on_dev.escalations}
 
 
+def run_counts(coll) -> dict:
+    """{rdb: (runs, memtable records)} of a collection."""
+    return {n: (len(db.runs), len(db.mem)) for n, db in coll.rdbs().items()}
+
+
+class Child:
+    """One ``python -m open_source_search_engine_tpu_torch serve`` node on
+    ``device`` over ``base``: its stdout is read by a thread (the first
+    line names the port), its stderr goes to a file; every wait has a
+    deadline, and ``close`` kills it if it still runs."""
+
+    def __init__(self, base: Path, coll: str, device: str, log_path: Path):
+        import queue
+        import threading
+        self._lines: queue.Queue = queue.Queue()
+        self._err = open(log_path, "ab")  # noqa: SIM115 — closed in close()
+        env = dict(os.environ, PYTHONPATH=str(ROOT))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "open_source_search_engine_tpu_torch",
+             "serve", "--dir", str(base), "--coll", coll, "--port", "0",
+             "--torch-device", device],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=self._err)
+        threading.Thread(target=self._read, daemon=True).start()
+        line = self.line(timeout=180)
+        self.base = json.loads(line)["serving"].rstrip("/")
+
+    def _read(self) -> None:
+        for raw in self.proc.stdout:
+            self._lines.put(raw.decode().strip())
+        self._lines.put(None)
+
+    def line(self, timeout: float) -> str:
+        import queue
+        try:
+            line = self._lines.get(timeout=timeout)
+        except queue.Empty:
+            raise AssertionError(f"the child printed nothing in {timeout} s")
+        assert line is not None, f"the child exited ({self.proc.poll()})"
+        return line
+
+    def get(self, path: str, params: dict, deadline: float):
+        """GET until the node answers (connection refused is retried)."""
+        while True:
+            try:
+                return http_get(self.base, path, params)
+            except OSError:
+                assert time.perf_counter() < deadline, f"{path} never answered"
+                time.sleep(0.05)
+
+    def kill9(self) -> None:
+        import signal
+        self.proc.send_signal(signal.SIGKILL)
+        self.proc.wait(timeout=60)
+
+    def stop(self) -> None:
+        import signal
+        self.proc.send_signal(signal.SIGTERM)
+        self.proc.wait(timeout=120)
+        assert self.proc.returncode == 0, self.proc.returncode
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=60)
+        self._err.close()
+
+
+def durability(colldb, name, queries, work, reset_counts, device):
+    """(5g) the durable node over the collection ``name`` of ``colldb``:
+
+    * a save adds no run and empties no memtable;
+    * the collection reopened in process (runs verified with their CRCs,
+      the memtable checkpoint loaded, the journal replayed) answers the
+      queries bitwise as before the save, with the open and the first
+      batch timed;
+    * a forced daily merge of every Rdb while 4 resident clients send the
+      queries: every page equals the page from before it, and after the
+      swap the serving index equals one built from scratch;
+    * a child ``serve`` node on ``device`` takes 16 POST /inject (each
+      answered 200) and is killed with SIGKILL; the restarted node finds
+      each of the 16, and answers every page as before the kill.
+
+    Returns the phase's numbers; the collection is released (its loop
+    stopped, saved, dropped from ``colldb``) at the end."""
+    import threading
+    import urllib.request
+    from datetime import datetime
+
+    import torch
+    from open_source_search_engine_tpu_torch.control.dailymerge import \
+        DailyMerge
+    from open_source_search_engine_tpu_torch.corpus import \
+        assert_tie_run_parity
+    from open_source_search_engine_tpu_torch.query import engine
+    from open_source_search_engine_tpu_torch.query import \
+        fd_scores_kernel as fdk
+    from open_source_search_engine_tpu_torch.query import \
+        min_scores_kernel as msk
+    from open_source_search_engine_tpu_torch.query.devindex import \
+        DeviceIndex
+    from open_source_search_engine_tpu_torch.serve.tenancy import \
+        g_residency
+    from open_source_search_engine_tpu_torch.utils.membudget import \
+        g_membudget
+    from open_source_search_engine_tpu_torch.utils.parms import Conf
+    from open_source_search_engine_tpu_torch.utils.stats import g_stats
+
+    SC = dict(topk=10, with_snippets=False, site_cluster=False)
+    t_phase = time.perf_counter()
+    out: dict = {}
+
+    def exact(pages):
+        return [(p.total_matches, [(r.docid, r.score) for r in p.results])
+                for p in pages]
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def launches():
+        return (msk.launches, fdk.launches_tail + fdk.launches_notail,
+                msk.plain_calls + fdk.plain_calls)
+
+    # the process budget stays at its default (max_mem, 4 GiB): the
+    # resident index's device bytes (5.4 GiB) answer to the device cap,
+    # not to it
+    assert g_membudget.limit == 4 << 30, g_membudget.limit
+
+    # ---- a save adds no run ----
+    coll = colldb.get(name)
+    g_residency.reset()
+    coll._device_index = None
+    ref = engine.search_device_batch(coll, queries, **SC)  # fresh index
+    ref_source = coll._device_index.base_source
+    before = run_counts(coll)
+    t0 = time.perf_counter()
+    colldb.save_all()
+    out["save_s"] = time.perf_counter() - t0
+    after = run_counts(coll)
+    log(f"[durable] save_all() in {out['save_s']:.2f} s; (runs, memtable "
+        f"records) per Rdb before {before}, after {after}")
+    assert after == before, (before, after)
+    assert (coll.posdb.dir / "saved").is_dir() or not before["posdb"][1]
+    out["runs_before_save"] = before
+
+    # ---- reopen in process ----
+    g_residency.reset()
+    coll._device_index = None
+    colldb.drop(name)
+    del coll
+    t0 = time.perf_counter()
+    coll = colldb.get(name)
+    out["open_s"] = time.perf_counter() - t0
+    coll.conf.pqr_enabled = False
+    assert run_counts(coll) == before and not any(
+        db.quarantined for db in coll.rdbs().values())
+    reset_counts()
+    t0 = time.perf_counter()
+    pages = engine.search_device_batch(coll, queries, **SC)
+    sync()
+    out["reopen_first_batch_s"] = time.perf_counter() - t0
+    out["reopen_base_source"] = coll._device_index.base_source
+    out["reopen_launches"] = launches()
+    assert exact(pages) == exact(ref), "reopened pages differ"
+    if device == "cuda":   # K1 and K2 launched, no plain version ran
+        assert min(out["reopen_launches"][:2]) > 0 and \
+            out["reopen_launches"][2] == 0, out["reopen_launches"]
+    log(f"[durable] reopened in {out['open_s']:.2f} s (runs verified with "
+        f"their CRCs, checkpoint loaded, journal replayed); the first batch "
+        f"of {len(queries)} in {out['reopen_first_batch_s']:.2f} s (base "
+        f"built from: {out['reopen_base_source']}; before the save: "
+        f"{ref_source}); every page bitwise equal to the pages before the "
+        f"save; K1 / K2 launches {out['reopen_launches'][:2]}")
+
+    # ---- a merge while 4 resident clients serve ----
+    engine.search_device_batch(coll, queries, **SC, resident=True)
+    learned = dict(zip(queries, engine.search_device_batch(
+        coll, queries, **SC, resident=True)))
+    first = dict(zip(queries, ref))
+    old = coll._device_index
+    runs0 = run_counts(coll)
+    stop = threading.Event()
+    served: list = []
+    errors: list = []
+    swapped = threading.Event()
+    rounds_after = [0] * 4
+
+    def client(c):
+        try:
+            while not stop.is_set():
+                for q in queries[c::4]:
+                    (page,) = engine.search_device_batch(coll, [q], **SC,
+                                                         resident=True)
+                    assert page.total_matches == learned[q].total_matches, q
+                    assert_tie_run_parity(as_raw(page), as_raw(learned[q]), q)
+                    served.append(exact([page]) in (exact([learned[q]]),
+                                                    exact([first[q]])))
+                if swapped.is_set():
+                    rounds_after[c] += 1
+        except BaseException as exc:  # noqa: BLE001 — reported below
+            errors.append((c, repr(exc)))
+
+    swap_at: list = []
+
+    def watch():   # the moment the rebuilt index replaces the old one
+        while not stop.is_set():
+            if coll._device_index is not old:
+                swap_at.append(time.perf_counter())
+                return
+            time.sleep(0.002)
+
+    reset_counts()
+    clients = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(4)] + [threading.Thread(target=watch,
+                                                      daemon=True)]
+    for t in clients:
+        t.start()
+    conf = Conf()
+    conf.merge_quiet_hours = "0-23"
+    dm = DailyMerge([coll], conf)
+    refused0 = g_stats.counters.get("membudget.reject.merge", 0)
+    t0 = time.perf_counter()
+    try:
+        assert dm.tick(now=datetime(2026, 1, 1, 3, 0))
+        out["merge_s"] = time.perf_counter() - t0
+        # the posdb run set moved (more than one run merged): the serving
+        # index rebuilds its base in the background and swaps it in
+        assert runs0["posdb"][0] > 1 or device != "cuda", runs0
+        while runs0["posdb"][0] > 1 and (
+                not swap_at or getattr(coll, "_di_rebuilding", False)):
+            assert time.perf_counter() - t0 < 300, "no swap after the merge"
+            assert not errors, errors
+            time.sleep(0.01)
+        out["swap_s"] = (swap_at[0] if swap_at else time.perf_counter()) - t0
+        swapped.set()
+        while min(rounds_after) < 1:
+            assert time.perf_counter() - t0 < 600, "clients stalled"
+            assert not errors, errors
+            time.sleep(0.01)
+    finally:
+        stop.set()
+        for t in clients:
+            t.join(timeout=300)
+    assert not any(t.is_alive() for t in clients), "a client hung"
+    assert not errors, errors
+    out["merge_launches"] = launches()
+    if device == "cuda":
+        assert min(out["merge_launches"][:2]) > 0 and \
+            out["merge_launches"][2] == 0, out["merge_launches"]
+    fresh = coll._device_index
+    out["runs_after_merge"] = run_counts(coll)
+    out["merge_base_source"] = fresh.base_source
+    scratch = DeviceIndex(coll)
+    for cname, a in scratch.columns().items():
+        b = fresh.columns()[cname]
+        if a.dtype == torch.float16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert a.shape == b.shape and torch.equal(a, b), cname
+    del scratch, old
+    log(f"[durable] daily merge (forced, every Rdb, posdb first) in "
+        f"{out['merge_s']:.2f} s while 4 resident clients served; the "
+        f"rebuilt base swapped in {out['swap_s']:.2f} s after the merge "
+        f"began (built from: "
+        f"{out['merge_base_source']}); (runs, memtable records) before "
+        f"{runs0}, after {out['runs_after_merge']}; {len(served)} pages "
+        f"served, every one equal to the page before the merge (totals, "
+        f"docids by tie runs, scores), {sum(served)} of them bitwise; the "
+        f"swapped index equals one built from scratch (columns bitwise); "
+        f"K1 / K2 launches {out['merge_launches'][:2]}")
+    assert all(n <= 1 for n, _ in out["runs_after_merge"].values())
+    assert g_stats.counters.get("membudget.reject.merge", 0) == refused0
+
+    # ---- kill -9 of a child node ----
+    g_residency.reset()
+    coll._device_index = None
+    coll.save()
+    base = colldb.base_dir
+    colldb.drop(name)
+    del coll, fresh
+    words = [f"zqxvdurable{i}" for i in range(16)]
+    asked = list(queries) + words
+    child = Child(base, name, device, work / "child.log")
+    try:
+        deadline = time.perf_counter() + 300
+        code, _ = child.get("/admin/stats", {}, deadline)
+        assert code == 200
+        for i, w in enumerate(words):
+            req = urllib.request.Request(
+                f"{child.base}/inject?c={name}&u=http://durable{i}.example."
+                f"com/p", data=(f"<html><title>durable {i}</title><body><p>"
+                                f"{w} survives a kill</p></body></html>"
+                                ).encode())
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                assert resp.status == 200
+        pre = {}
+        for q in asked:
+            code, body = child.get("/search", {"q": q, "c": name,
+                                               "format": "json", "n": 10},
+                                   deadline)
+            assert code == 200, (q, code, body[:300])
+            pre[q] = body
+        child.kill9()
+        assert child.proc.returncode == -9, child.proc.returncode
+        child.close()
+        child = Child(base, name, device, work / "child.log")
+        code, body = child.get("/search", {"q": asked[0], "c": name,
+                                           "format": "json", "n": 10},
+                               time.perf_counter() + 300)
+        out["restart_to_first_page_s"] = time.perf_counter() - child.t0
+        assert code == 200 and body == pre[asked[0]], asked[0]
+        for q in asked[1:]:
+            code, body = child.get("/search", {"q": q, "c": name,
+                                               "format": "json", "n": 10},
+                                   time.perf_counter() + 120)
+            assert code == 200 and body == pre[q], q
+        for w in words:
+            assert json.loads(pre[w])["totalMatches"] == 1, w
+        child.stop()
+    finally:
+        child.close()
+    log(f"[durable] a child serve node took 16 POST /inject (each 200) and "
+        f"was killed with SIGKILL; restarted, it answered /search "
+        f"{out['restart_to_first_page_s']:.2f} s after its spawn; each of "
+        f"the 16 found, and all {len(asked)} pages equal to the pages "
+        f"before the kill")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[durable] phase (5g) in {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1001,7 +1353,8 @@ def main() -> int:
     coll_rate = coll.num_docs / t_index
     log(f"[index] {coll.num_docs} docs in {t_index:.1f} s "
         f"({coll_rate:.1f} docs/s, every page with its date fielddb "
-        f"record; {smi})")
+        f"record, every write journaled; {smi}); runs per Rdb "
+        f"{ {n: r for n, (r, _) in run_counts(coll).items()} }")
     assert coll.num_docs == N_DOCS, coll.num_docs
 
     queries = make_queries(N_QUERIES, seed=1234)
@@ -1184,7 +1537,51 @@ def main() -> int:
     log(f"[devindex] host-oracle build (OSSE_DEVBUILD=0) in {t_oracle:.2f} "
         f"s; every column ({len(di.columns())}) and directory table of the "
         "device build is bitwise equal to it")
+    assert (di.base_source, oracle.base_source) == ("device", "host")
     del oracle, a, b
+    # the oracle wrote the run set's disk base cache. On CUDA a parked
+    # tenant's cold start (its loop included) takes the device build,
+    # which is faster than the cache; the cache is read where the device
+    # build is off (OSSE_DEVBUILD=0), bitwise equal to the device build.
+    # Then the device-built index serves again
+    coll._device_index = None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.get_resident_loop(coll)
+    torch.cuda.synchronize()
+    t_cold = time.perf_counter() - t0
+    assert coll._device_index.base_source == "device", \
+        coll._device_index.base_source
+    g_residency.reset()
+    os.environ["OSSE_DEVBUILD"] = "0"
+    try:
+        t0 = time.perf_counter()
+        cached = DeviceIndex(coll)
+        torch.cuda.synchronize()
+        t_cached = time.perf_counter() - t0
+    finally:
+        if saved_devbuild is None:
+            os.environ.pop("OSSE_DEVBUILD")
+        else:
+            os.environ["OSSE_DEVBUILD"] = saved_devbuild
+    assert cached.base_source == "cache", cached.base_source
+    for name in ("dir_termids", "base_df", "dir_dstart", "dir_pstart",
+                 "base_docids", "h_doc_col"):
+        a, b = getattr(cached, name), getattr(di, name)
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+    for name, a in cached.columns().items():
+        b = di.columns()[name]
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype == torch.float16:
+            a, b = a.view(torch.int16), b.view(torch.int16)
+        assert torch.equal(a, b), name
+    log(f"[devindex] a parked tenant's cold start (loop included) took the "
+        f"device build in {t_cold:.2f} s; the disk base cache, read with "
+        f"the device build off, in {t_cached:.2f} s (device build "
+        f"{t_build:.2f} s, host oracle {t_oracle:.2f} s in this run); every "
+        "column of the cache bitwise equal to the device build")
+    coll._device_index = di
+    del cached, a, b
 
     def wave_words(a):  # words an FD wave reads: quarter rows + tail
         return a[0].numel() * (1 if a[-1] is None else 2)
@@ -1523,23 +1920,40 @@ def main() -> int:
         f"a batch of 16 in {t_during * 1e3:.1f} ms during the background "
         f"rebuild, which swapped in after {t_rebuild:.2f} s; {len(plans)} "
         "queries after the swap equal a DeviceIndex built from scratch "
-        "(columns bitwise)")
+        f"(columns bitwise); base built from: {fresh.base_source} (the "
+        f"rebuild), {scratch.base_source} (from scratch); runs per Rdb "
+        f"after the dump {run_counts(coll)}; merges refused by the budget "
+        f"{g_stats.counters.get('membudget.reject.merge', 0)}")
+    # the resident index's device bytes do not spend the host budget: the
+    # dump's merge ran, and no Rdb holds more than max_runs runs
+    assert all(len(db.runs) <= db.max_runs
+               for db in coll.rdbs().values()), run_counts(coll)
+    assert not g_stats.counters.get("membudget.reject.merge"), \
+        g_stats.counters
     g_residency.reset()
     assert not loop.alive and loop.join(timeout=60)
     del di, fresh, scratch, after, during
     coll._device_index = None
 
+    log(f"[serve] base built from: "
+        f"{engine.get_device_index(coll).base_source}")
     served = serve_over_http(colldb, coll, queries, work, reset_counts,
                              report_profile)
     g_residency.reset()
     coll._device_index = None
 
+    log(f"[numeric] base built from: "
+        f"{engine.get_device_index(coll).base_source}")
     numeric = numeric_operators(colldb, coll, queries, work, reset_counts,
                                 smi)
     g_residency.reset()
     coll._device_index = None
 
     route = route_corpus(work / "route", "cuda")
+
+    durable = durability(colldb, coll.name, queries, work, reset_counts,
+                         "cuda")
+    del coll
 
     # ---- 6. golden QA on the card ----
     import importlib.util
@@ -1585,6 +1999,9 @@ def main() -> int:
             "one_shot_sorted": numeric["launches"]["sort"][0],
             "resident_mixed": numeric["resident_launches"][0],
             "served_mixed": numeric["served"]["k1_launches"]},
+        "launches_durability": {
+            "reopened_batch": durable["reopen_launches"][0],
+            "clients_across_merge": durable["merge_launches"][0]},
         "max_abs_err": max_err,
         "ms": k1d_ms, "parent_ms": k1d_par, "plain_ms": k1d_plain_ms,
         "bound_ms": k1d_b_ms,
@@ -1613,6 +2030,9 @@ def main() -> int:
             "one_shot_sorted": numeric["launches"]["sort"][1],
             "resident_mixed": numeric["resident_launches"][1],
             "served_mixed": numeric["served"]["k2_launches"]},
+        "launches_durability": {
+            "reopened_batch": durable["reopen_launches"][1],
+            "clients_across_merge": durable["merge_launches"][1]},
         "launches_tail_notail": list(k2_split),
         "max_abs_err": k2_err, "ms": k2_ms, "parent_ms": k2_par,
         "plain_ms": k2_plain_ms,
@@ -1639,6 +2059,8 @@ def main() -> int:
         "device_build_peak_gib": build_peak / 2**30,
         "device_build_spans_s": build_spans, "resident": resident,
         "served": served, "numeric": numeric, "route_corpus": route,
+        "cold_start_s": t_cold, "cache_read_s": t_cached,
+        "durability": durable,
         "index_docs_s": coll_rate}}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

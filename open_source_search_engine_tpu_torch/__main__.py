@@ -3,14 +3,20 @@
     python -m open_source_search_engine_tpu_torch serve --dir ./data --port 8000
     python -m open_source_search_engine_tpu_torch inject --dir ./data URL [FILE]
     python -m open_source_search_engine_tpu_torch search --dir ./data "query"
+    python -m open_source_search_engine_tpu_torch save --dir ./data
+    python -m open_source_search_engine_tpu_torch repair --dir ./data
 
 Each takes ``--torch-device {cuda,cpu}`` (default ``cuda``): the device
-queries score on. ``serve`` runs the node's HTTP server until SIGINT or
-SIGTERM, then stops it and saves every open collection (its runs, doc
-count, speller and conf), so a restart answers the same; the reference's
-autosave clock and daily merge are not carried. ``inject`` dumps the
-collection after indexing, so a later process reads it back, and exits 1
-with ``"error": "banned"`` when a tagdb ``manualban`` drops the page.
+queries score on. ``serve`` runs the node's HTTP server with the autosave
+clock (``--autosave`` minutes) and the daily merge (the
+``merge_quiet_hours`` parm) until SIGINT or SIGTERM, then stops it and
+saves every open collection (each Rdb's memtable checkpoint, the doc
+count, the speller and the conf), so a restart answers the same; every
+write is journaled first, so a kill -9 loses no acknowledged ``/inject``.
+``inject`` saves after indexing, and exits 1 with ``"error": "banned"``
+when a tagdb ``manualban`` drops the page. ``save`` checkpoints every
+collection of the directory; ``repair`` rebuilds a collection's posdb,
+clusterdb and linkdb from its titledb.
 """
 
 from __future__ import annotations
@@ -31,28 +37,33 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 
 def cmd_serve(args) -> int:
-    import signal
-    import threading
+    import time
 
+    from .control.dailymerge import DailyMerge
+    from .control.process import Process
     from .serve.server import SearchHTTPServer
 
     srv = SearchHTTPServer(args.dir, host=args.host, port=args.port,
                            device=args.torch_device)
     srv.colldb.get(args.coll)   # open (or create) the default collection
+    proc = Process(autosave_minutes=args.autosave)
+    proc.register(srv.colldb)
+    proc.install_signal_handlers()
+    proc.start_autosave()
+    # quiet-hours full merges (DailyMerge.h:11); the window is the
+    # merge_quiet_hours parm, empty = disabled
+    dm = DailyMerge(lambda: [srv.colldb.get(n) for n in srv.colldb.names()],
+                    srv.conf)
+    dm.start()
+    proc.on_shutdown(dm.stop)
     srv.start()
-    stop = threading.Event()
-
-    def handler(signum, frame):
-        stop.set()
-
-    signal.signal(signal.SIGTERM, handler)
-    signal.signal(signal.SIGINT, handler)
     print(json.dumps({"serving": f"http://{args.host}:{srv.port}/",
                       "coll": args.coll, "dir": args.dir,
                       "device": args.torch_device}), flush=True)
-    stop.wait()
-    srv.stop()
-    srv.colldb.save_all()
+    while not proc.stopping:
+        time.sleep(0.2)
+    srv.stop()         # no request writes while the collections save
+    proc.shutdown()
     print(json.dumps({"stopped": True, "saved": sorted(srv.colldb.colls)}),
           flush=True)
     return 0
@@ -60,18 +71,44 @@ def cmd_serve(args) -> int:
 
 def cmd_inject(args) -> int:
     from .build import docproc
-    from .index.collection import Collection
+    from .index.collection import CollectionDb
 
-    coll = Collection(args.coll, args.dir, device=args.torch_device)
+    colldb = CollectionDb(args.dir, device=args.torch_device)
+    coll = colldb.get(args.coll)
     content = (Path(args.file).read_text(encoding="utf-8", errors="replace")
                if args.file else sys.stdin.read())
     ml = docproc.index_document(coll, args.url, content)
-    coll.dump_all()
+    colldb.save_all()
     if ml is None:  # tagdb manualban
         print(json.dumps({"injected": args.url, "error": "banned"}))
         return 1
     print(json.dumps({"injected": args.url, "docid": int(ml.docid),
                       "docs": coll.num_docs}))
+    return 0
+
+
+def cmd_save(args) -> int:
+    from .index.collection import CollectionDb
+
+    colldb = CollectionDb(args.dir, device=args.torch_device)
+    for name in colldb.names():
+        colldb.get(name)
+    colldb.save_all()
+    print(json.dumps({"saved": colldb.names()}))
+    return 0
+
+
+def cmd_repair(args) -> int:
+    from .control.rebalance import repair
+    from .index.collection import CollectionDb
+
+    colldb = CollectionDb(args.dir, device=args.torch_device)
+    try:
+        coll = colldb.get(args.coll, create=False)
+    except KeyError:
+        print(f"no such collection: {args.coll}", file=sys.stderr)
+        return 1
+    print(json.dumps({"repaired": args.coll, "docs": repair(coll)}))
     return 0
 
 
@@ -107,6 +144,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="listen address (default 127.0.0.1)")
     p.add_argument("--port", type=int, default=8000,
                    help="listen port (default 8000; 0 = any free port)")
+    p.add_argument("--autosave", type=float, default=5.0,
+                   help="autosave interval in minutes (default 5)")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("inject", help="index one document")
@@ -121,6 +160,15 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("-k", type=int, default=10)
     p.add_argument("--json", action="store_true", help="compact JSON")
     p.set_defaults(fn=cmd_search)
+
+    p = sub.add_parser("save", help="checkpoint every collection")
+    _add_common(p)
+    p.set_defaults(fn=cmd_save)
+
+    p = sub.add_parser("repair", help="rebuild posdb, clusterdb and "
+                       "linkdb from titledb")
+    _add_common(p)
+    p.set_defaults(fn=cmd_repair)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -584,12 +584,12 @@ def index_batch(coll: Collection, docs, *, is_html: bool = True,
         out[i] = ml
     if metas:
         _write(coll, metas)
+        coll.doc_added(len(metas))
         for (i, u, url, content, site, sr), ml in zip(work, metas):
             coll.sectiondb.add_page_sections(site, u.full, ml.sections)
             coll.titlerec_cache.pop(ml.docid, None)
             if ml.words:
                 coll.speller.add_doc_words(ml.words)
-            coll.doc_added()
             _record_edges(coll, ml, site, u.full, sr)
             ml.refresh_targets = [e[0] for e in ml.edges]
         if propagate:

@@ -8,13 +8,23 @@ collection owns posdb (positional index, dataless 18-byte keys), titledb
 inlink anchor text), tagdb (per-site tags), sectiondb (boilerplate
 votes), fielddb (numeric fields) and catdb (the directory taxonomy),
 plus the doc counter ranking needs (``Posdb.cpp:1225`` numDocsInColl)
-and the speller's word popularity. Not carried: the memtable save of
-``save()`` (rdblite has no journal yet, so ``save()`` dumps).
+and the speller's word popularity.
+
+Every Rdb journals its writes, and ``save()`` checkpoints each memtable
+(no run is added), so a restart after a kill -9 or a stop reads back what
+was acknowledged. The doc count is written to ``collstats.json`` at a
+save or a dump, as in the reference. Departure: an open that replays a
+journal (an unclean stop) recounts the documents from titledb's live
+records, so the term-frequency weights, and with them the scores, are
+the same after a kill -9 as before it; the reference reads the count of
+the last save. The speller's dictionary, as in the reference, is
+persisted only by a save or a dump.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import threading
 from collections import OrderedDict
 from pathlib import Path
@@ -102,7 +112,12 @@ class Collection:
         self.speller = Speller(self.dir)
         self._stats_path = self.dir / "collstats.json"
         self.num_docs = 0
-        if self._stats_path.exists():
+        if any(db.replayed for db in self.rdbs().values()):
+            # an unclean stop: collstats.json holds the count of the last
+            # save or dump, which misses the pages written since; each
+            # live titlerec is one document
+            self.num_docs = self.titledb.count_live()
+        elif self._stats_path.exists():
             self.num_docs = json.loads(
                 self._stats_path.read_text())["num_docs"]
         #: parsed-titlerec cache keyed by docid (``RdbCache.h:50``)
@@ -120,6 +135,11 @@ class Collection:
                 "fielddb": self.fielddb.rdb,
                 "catdb": self.catdb.rdb}
 
+    def _save_stats(self) -> None:
+        tmp = self._stats_path.with_name(self._stats_path.name + ".tmp")
+        tmp.write_text(json.dumps({"num_docs": self.num_docs}))
+        os.replace(tmp, self._stats_path)
+
     def doc_added(self, n: int = 1) -> None:
         self.num_docs += n
 
@@ -128,17 +148,20 @@ class Collection:
 
     def dump_all(self) -> None:
         """Dump every memtable to a run and persist the doc count and the
-        speller's dictionary: what a later process opening the same
-        directory reads back."""
+        speller's dictionary (the bulk-load and device-build paths)."""
         for db in self.rdbs().values():
             db.dump()
         self.speller.save()
-        self._stats_path.write_text(json.dumps({"num_docs": self.num_docs}))
+        self._save_stats()
 
     def save(self) -> None:
-        """``dump_all`` plus the collection's conf."""
-        self.dump_all()
+        """Checkpoint every Rdb's memtable (no run is added), then the
+        speller, the conf and the doc count (``Process::saveRdbTrees``)."""
+        for db in self.rdbs().values():
+            db.save()
+        self.speller.save()
         self.conf.save(self._conf_path)
+        self._save_stats()
 
 
 class CollectionDb:
@@ -175,6 +198,11 @@ class CollectionDb:
         disk = {p.name for p in (self.base_dir / "coll").glob("*")
                 if p.is_dir()}
         return sorted(disk | set(self.colls))
+
+    def save(self) -> None:
+        """``save_all``, so a CollectionDb registers as a Process
+        savable."""
+        self.save_all()
 
     def save_all(self) -> None:
         with self._lock:

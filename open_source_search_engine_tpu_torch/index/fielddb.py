@@ -117,8 +117,8 @@ class Fielddb:
         return unpack_keys(batch.keys)["docid"], vals
 
     def save(self) -> None:
-        """Persist the memtable (a dump: rdblite has no journal yet)."""
-        self.rdb.dump()
+        """Checkpoint the memtable (no run is added)."""
+        self.rdb.save()
 
 
 def make_records(docid: int, fields: dict[str, float], delbit: int = 1):

@@ -1,8 +1,10 @@
 """Rdb-lite — the host-side LSM record store, one engine for every database.
 
 Reference: the Rdb engine (``Rdb::addList`` ``Rdb.cpp:2006``,
-``Rdb::dumpTree`` ``Rdb.cpp:1172``, ``RdbBuckets`` memtable, ``RdbList``
-with +/- tombstone annihilation, ``Msg5`` read = merge memtable + runs).
+``Rdb::dumpTree`` ``Rdb.cpp:1172``, ``RdbBuckets`` memtable,
+``RdbBase::attemptMerge`` ``RdbBase.cpp:1400``, ``RdbList`` with +/-
+tombstone annihilation, ``Msg5`` read = merge memtable + runs, Msg4's
+``addsinprogress`` journal ``Msg4.cpp:86,115``).
 
 Records are columnar numpy arrays: a sorted run is a structured key array
 (+ optional payload blob with offsets), so a termlist range read is a
@@ -10,24 +12,79 @@ Records are columnar numpy arrays: a sorted run is a structured key array
 *reversed* field order is the comparison order; bit 0 of the least
 significant field is the delbit (1 = positive, 0 = tombstone).
 
-This copy keeps add/delete/dump/get_list/get_all with newest-wins merge
-and tombstone annihilation. Dumped runs are ``.npy`` directories loaded
-back when the Rdb opens. There is no journal, memtable checkpoint,
-background merge or integrity scrub.
+A copy of ``open_source_search_engine_tpu/index/rdblite.py`` with the same
+on-disk format, so either package opens a directory the other wrote:
+
+* runs are ``run_<id>[_m<id>]`` directories of ``.npy`` files with a
+  ``meta.json`` carrying whole-file CRCs, verified when the Rdb opens
+  (a corrupt run is quarantined to ``*.corrupt``) and by :meth:`Rdb.scrub`;
+* every add and delete is journaled to ``addsinprogress.bin`` before it
+  applies and replayed on open, so a kill -9 loses no acknowledged write;
+* :meth:`Rdb.save` checkpoints the memtable to ``saved/`` (published
+  through ``saved.new``) without adding a run;
+* :meth:`Rdb.attempt_merge` keeps the run count bounded.
+
+Not carried: the native C++ merge core (the numpy merge is the same
+function) and the chaos plane's Rdb fault points.
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import os
 import shutil
+import struct
+import zlib
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 
+from ..utils.lockcheck import make_rlock
 from ..utils.log import get_logger
+from ..utils.membudget import g_membudget
+from ..utils.stats import g_stats
 
 log = get_logger("rdb")
+
+#: keys per page of a run's sparse page index (``meta.json``'s
+#: ``page_first_keys``, the ``RdbMap`` role)
+PAGE_KEYS = 4096
+
+#: an early dump under process-wide memory pressure needs at least this
+#: much buffered, so pressure cannot shred the memtable into tiny runs
+_EARLY_DUMP_FLOOR = 1 << 20
+
+#: the journal's batch header: record count, CRC32 of the body, body bytes
+_JOURNAL_HDR = struct.Struct("<IIQ")
+
+
+def _locked(fn):
+    """Serialize a mutating Rdb method on the instance's re-entrant write
+    lock: the indexing path, the autosave clock and the daily merge write
+    from different threads, and add → dump → attempt_merge nest."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self._wlock:
+            return fn(self, *args, **kwargs)
+    return wrapper
+
+
+class CorruptRunError(Exception):
+    """A run failed its integrity checks (the Msg5 'Rdb Error
+    Correction' symptom: out-of-order keys, a bad map, a CRC mismatch)."""
+
+
+def _crc_chunks(arr: np.ndarray, chunk_rows: int = 1 << 22) -> int:
+    """CRC32 of an array's bytes, streamed in row chunks so an mmap'd run
+    is never materialized whole."""
+    crc = 0
+    for i in range(0, len(arr), chunk_rows):
+        crc = zlib.crc32(
+            np.ascontiguousarray(arr[i:i + chunk_rows]).tobytes(), crc)
+    return crc
 
 
 def key_sort_order(keys: np.ndarray) -> np.ndarray:
@@ -175,7 +232,9 @@ def merge_batches(batches: list[RecordBatch],
     (the memtable keeps it so it can still annihilate records in runs)."""
     nonempty = [b for b in batches if len(b)]
     if not nonempty:
-        return batches[0]
+        if batches:  # keep the caller's key dtype and data-ness
+            return batches[0]
+        return RecordBatch(np.empty(0, dtype=np.dtype([("n0", "<u2")])))
     if len(nonempty) == 1 and bool(delbits(nonempty[0].keys).all()):
         return nonempty[0]  # sorted single all-positive source: done
     batches = nonempty
@@ -195,15 +254,48 @@ def merge_batches(batches: list[RecordBatch],
 
 class Run:
     """One immutable sorted run on disk: ``keys.npy`` (+ ``offsets.npy``
-    and ``data.npy`` for payload dbs), loaded with ``mmap_mode='r'``."""
+    and ``data.npy`` for payload dbs), loaded with ``mmap_mode='r'``, and
+    ``meta.json`` (record count, key dtype, the sparse page index and the
+    whole-file CRCs). Opening verifies it unless ``verify=False``."""
 
-    def __init__(self, path: Path):
+    def __init__(self, path: Path, verify: bool = True):
         self.path = Path(path)
-        self.keys = np.load(self.path / "keys.npy", mmap_mode="r")
-        self.offsets = self.data = None
-        if (self.path / "offsets.npy").exists():
-            self.offsets = np.load(self.path / "offsets.npy", mmap_mode="r")
-            self.data = np.load(self.path / "data.npy", mmap_mode="r")
+        try:
+            self.meta = json.loads((self.path / "meta.json").read_text())
+            self.keys = np.load(self.path / "keys.npy", mmap_mode="r")
+            self.offsets = self.data = None
+            if (self.path / "offsets.npy").exists():
+                self.offsets = np.load(self.path / "offsets.npy",
+                                       mmap_mode="r")
+                self.data = np.load(self.path / "data.npy", mmap_mode="r")
+        except (OSError, ValueError) as e:  # torn write, missing file
+            raise CorruptRunError(f"{path}: unreadable ({e})") from e
+        if verify:
+            self.verify()
+
+    def verify(self) -> None:
+        """Record count, key order, offset monotonicity and, where the
+        run was written with them, the CRCs of its keys and payloads
+        (streamed in chunks). Raises :class:`CorruptRunError`."""
+        if self.meta.get("nrecs") != len(self.keys):
+            raise CorruptRunError(
+                f"{self.path}: nrecs {self.meta.get('nrecs')} != "
+                f"{len(self.keys)}")
+        if not keys_sorted(self.keys):
+            raise CorruptRunError(f"{self.path}: keys out of order")
+        if self.offsets is not None:
+            offs = np.asarray(self.offsets)
+            if len(offs) != len(self.keys) + 1 or offs[0] != 0 \
+                    or (np.diff(offs) < 0).any() \
+                    or offs[-1] > len(self.data):
+                raise CorruptRunError(f"{self.path}: bad offsets")
+        crc = self.meta.get("keys_crc")
+        if crc is not None and _crc_chunks(self.keys) != crc:
+            raise CorruptRunError(f"{self.path}: keys CRC mismatch")
+        dcrc = self.meta.get("data_crc")
+        if dcrc is not None and self.data is not None \
+                and _crc_chunks(self.data) != dcrc:
+            raise CorruptRunError(f"{self.path}: data CRC mismatch")
 
     def __len__(self) -> int:
         return len(self.keys)
@@ -214,19 +306,33 @@ class Run:
     @staticmethod
     def write(path: Path, batch: RecordBatch) -> "Run":
         """RdbDump: persist a sorted batch as an immutable run (written
-        to a temporary name, then renamed into place)."""
+        to a temporary name, then renamed into place). ``meta.json`` is
+        byte for byte the reference's."""
         path = Path(path)
         tmp = path.with_name(path.name + ".tmp")
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
-        np.save(tmp / "keys.npy", np.ascontiguousarray(batch.keys))
+        keys_c = np.ascontiguousarray(batch.keys)
+        np.save(tmp / "keys.npy", keys_c)
+        data_crc = None
         if batch.has_data:
             np.save(tmp / "offsets.npy", batch.offsets)
             np.save(tmp / "data.npy", batch.data)
-        (tmp / "meta.json").write_text(json.dumps({"nrecs": len(batch)}))
+            data_crc = _crc_chunks(batch.data)
+        names = batch.keys.dtype.names
+        (tmp / "meta.json").write_text(json.dumps({
+            "nrecs": len(batch),
+            "dtype": [[n, str(batch.keys.dtype[n])] for n in names],
+            "has_data": batch.has_data,
+            "page_keys": PAGE_KEYS,
+            "page_first_keys": [[int(batch.keys[i][f]) for f in names]
+                                for i in range(0, len(batch), PAGE_KEYS)],
+            "keys_crc": _crc_chunks(keys_c),
+            "data_crc": data_crc,
+        }))
         tmp.rename(path)
-        return Run(path)
+        return Run(path, verify=False)  # just written from RAM
 
 
 class MemTable:
@@ -306,57 +412,237 @@ class MemTable:
 class Rdb:
     """One named database for one collection: memtable + immutable runs.
     ``add`` (``Rdb::addList``), ``dump`` (``Rdb::dumpTree``),
-    ``get_list`` (``Msg5::getList`` — merged memtable+runs range read)."""
+    ``attempt_merge`` (``RdbBase::attemptMerge``), ``get_list``
+    (``Msg5::getList`` — merged memtable+runs range read), ``save`` /
+    ``load_saved`` (the RdbTree ``-saved.dat`` checkpoint).
+
+    ``OSSE_NO_JOURNAL=1`` in the environment (for bulk rebuilds whose
+    source is itself durable) turns the write-ahead journal off;
+    ``OSSE_JOURNAL_FSYNC=1`` fsyncs each append, for power loss (a flush
+    alone survives a kill -9)."""
 
     def __init__(self, name: str, directory: str | Path,
                  key_dtype: np.dtype, has_data: bool = False,
-                 max_memtable_bytes: int = 64 << 20):
+                 max_memtable_bytes: int = 64 << 20, max_runs: int = 8):
         self.name = name
         self.dir = Path(directory) / name
         self.dir.mkdir(parents=True, exist_ok=True)
         self.key_dtype = key_dtype
         self.has_data = has_data
         self.max_memtable_bytes = max_memtable_bytes
+        self.max_runs = max_runs
+        self._wlock = make_rlock(f"rdb.{name}")
         self.mem = MemTable(key_dtype, has_data)
-        #: bumped on every mutation; the termlist cache keys on it
+        self.runs: list[Run] = []
+        #: runs quarantined as corrupt (on open or by ``scrub``)
+        self.quarantined: list[str] = []
+        #: the next run id; read back from the run names on open, so a
+        #: name is never reused after a merge or a wipe
+        self._next_run_id = 0
+        #: bumped on every mutation; the termlist cache and the device
+        #: index key on it
         self.version = 0
-        self.runs = [Run(p) for p in sorted(self.dir.glob("run_*"))
-                     if p.is_dir() and not p.name.endswith(".tmp")]
+        self.journal_enabled = os.environ.get("OSSE_NO_JOURNAL") != "1"
+        self._journal_path = self.dir / "addsinprogress.bin"
+        self._journal_f = None
+        #: records the journal replayed at this open (0 after a clean
+        #: stop)
+        self.replayed = 0
+        if not self.journal_enabled and self._journal_path.exists() \
+                and self._journal_path.stat().st_size > 0:
+            # this open neither journals nor truncates on dump, so a
+            # later journaled open would replay stale batches over newer
+            # state: a journal-less open declares its source durable
+            log.warning("%s: journaling disabled but %s holds %d stale "
+                        "bytes; truncating it", self.name,
+                        self._journal_path.name,
+                        self._journal_path.stat().st_size)
+            self._journal_path.write_bytes(b"")
+        self._load_existing_runs()
 
+    def _gauge(self) -> None:
+        g_membudget.set_gauge("memtable", str(self.dir), self.mem.nbytes)
+
+    # --- writes ---
+
+    @_locked
     def add(self, keys: np.ndarray, blobs: list[bytes] | None = None) -> None:
-        """Add records; dump when the memtable exceeds its bound."""
+        """Add records: journaled before they apply; a dump when the
+        memtable reaches its bound, or earlier once it holds
+        ``_EARLY_DUMP_FLOOR`` bytes and the process budget is spent."""
+        keys = np.atleast_1d(keys).astype(self.key_dtype, copy=False)
+        self._journal_append(keys, blobs)
         self.mem.add(keys, blobs)
         self.version += 1
-        if self.mem.nbytes >= self.max_memtable_bytes:
+        self._gauge()
+        if self.mem.nbytes >= self.max_memtable_bytes or (
+                self.mem.nbytes >= _EARLY_DUMP_FLOOR
+                and not g_membudget.would_fit(0)):
             self.dump()
 
+    @_locked
     def delete(self, keys: np.ndarray) -> None:
         """Add tombstones for these keys (delbit cleared)."""
         neg = strip_delbit(np.atleast_1d(keys).astype(self.key_dtype,
                                                       copy=False))
-        self.mem.add(neg, [b""] * len(neg) if self.has_data else None)
+        blobs = [b""] * len(neg) if self.has_data else None
+        self._journal_append(neg, blobs)
+        self.mem.add(neg, blobs)
+        self.version += 1
+        self._gauge()
+
+    @_locked
+    def wipe(self) -> None:
+        """Drop all state: memtable, runs, checkpoint and journal (the
+        Repair rebuild's first step, ``Repair.h:20``)."""
+        self.mem.clear()
+        self._gauge()
+        for r in self.runs:
+            shutil.rmtree(r.path, ignore_errors=True)
+        self.runs = []
+        saved = self.dir / "saved"
+        if saved.exists():
+            shutil.rmtree(saved)
+        self._journal_truncate()
         self.version += 1
 
+    def _new_run_path(self, base_id: int | None = None) -> Path:
+        """The next run's directory: ``run_<id>``, or for a merge
+        ``run_<first merged id>_m<id>``, which sorts right after the runs
+        it keeps."""
+        rid = self._next_run_id
+        self._next_run_id += 1
+        if base_id is None:
+            return self.dir / f"run_{rid:06d}"
+        return self.dir / f"run_{base_id:06d}_m{rid:06d}"
+
+    @_locked
     def add_run(self, batch: RecordBatch) -> Run:
         """Bulk load: install a key-sorted, tombstone-free batch as the
         newest run, without passing it through the memtable."""
-        run = Run.write(self.dir / f"run_{len(self.runs):06d}", batch)
+        run = Run.write(self._new_run_path(), batch)
         self.runs.append(run)
         self.version += 1
         return run
 
+    @_locked
     def dump(self) -> Run | None:
-        """Memtable → new immutable run (RdbDump)."""
+        """Memtable → new immutable run (RdbDump); the checkpoint and the
+        journal it covers go, and past ``max_runs`` runs a merge runs."""
         batch = self.mem.batch()
         if not len(batch):
             return None
-        run = Run.write(self.dir / f"run_{len(self.runs):06d}", batch)
+        run = Run.write(self._new_run_path(), batch)
         self.runs.append(run)
         self.mem.clear()
+        self._gauge()
         self.version += 1
+        # a stale checkpoint would resurrect records the run now holds
+        saved = self.dir / "saved"
+        if saved.exists():
+            shutil.rmtree(saved)
+        self._journal_truncate()
         log.debug("%s: dumped run %s (%d recs)", self.name, run.path.name,
                   len(run))
+        if len(self.runs) > self.max_runs:
+            self.attempt_merge()
         return run
+
+    @_locked
+    def attempt_merge(self, force: bool = False) -> None:
+        """Merge runs to bound their count (``RdbBase::attemptMerge``).
+
+        Only the newest suffix merges, just long enough to bring the count
+        back to ``max_runs``, so the big old base run is not rewritten;
+        below the bound the newest two fold; ``force`` merges them all
+        (the daily merge). A merge reserves twice its inputs' bytes under
+        the membudget ``"merge"`` label; refused, it merges fewer, newer
+        runs, and defers when not even two fit. Tombstones are kept
+        unless the merge includes the oldest run."""
+        if len(self.runs) <= 1:
+            return
+        if force:
+            start = 0
+        elif len(self.runs) > self.max_runs:
+            start = self.max_runs - 1
+        else:
+            start = len(self.runs) - 2
+        start0 = start
+        while True:
+            est = 2 * sum(
+                int(r.keys.nbytes)
+                + (int(r.data.nbytes) if r.data is not None else 0)
+                for r in self.runs[start:])
+            if g_membudget.reserve("merge", est):
+                break
+            if start >= len(self.runs) - 2:
+                log.warning("%s: merge deferred: even the 2-run merge "
+                            "(%d MB working set) is over budget",
+                            self.name, est >> 20)
+                return
+            start += 1
+        if start != start0:
+            log.warning("%s: merge shrunk to the newest %d runs (budget "
+                        "pressure)", self.name, len(self.runs) - start)
+        try:
+            old = self.runs[start:]
+            merged = merge_batches([r.batch() for r in old],
+                                   keep_tombstones=start != 0)
+            base_id = int(old[0].path.name.split("_")[1])
+            run = Run.write(self._new_run_path(base_id), merged)
+            # readers that took the old list keep their mmaps: the old
+            # runs' files stay readable after the rmtree
+            self.runs = self.runs[:start] + [run]
+            self.version += 1
+            for r in old:
+                shutil.rmtree(r.path)
+            log.debug("%s: merged %d newest runs -> %s (%d recs, %d kept)",
+                      self.name, len(old), run.path.name, len(run), start)
+        finally:
+            g_membudget.release("merge", est)
+
+    def _quarantine(self, path: Path, err: CorruptRunError) -> str:
+        q = path.with_name(path.name + ".corrupt")
+        if q.exists():
+            shutil.rmtree(q)
+        path.rename(q)
+        self.quarantined.append(q.name)
+        g_stats.count("rdb.corrupt_quarantined")
+        log.error("%s: QUARANTINED corrupt run: %s", self.name, err)
+        return q.name
+
+    @_locked
+    def scrub(self) -> list[str]:
+        """Re-verify every run now and quarantine the failures; returns
+        their new names (the caller heals them from a twin)."""
+        bad: list[str] = []
+        keep: list[Run] = []
+        for r in self.runs:
+            try:
+                r.verify()
+                keep.append(r)
+            except CorruptRunError as e:
+                bad.append(self._quarantine(r.path, e))
+        if bad:
+            self.runs = keep
+            self.version += 1
+        return bad
+
+    @_locked
+    def replace_with(self, batch: RecordBatch) -> None:
+        """Wipe and reload from one merged batch (the twin patch's
+        receiving side)."""
+        self.wipe()
+        self.quarantined = []
+        for p in self.dir.glob("run_*.corrupt"):
+            shutil.rmtree(p, ignore_errors=True)
+        if len(batch):
+            self.mem.add(batch.keys.copy(),
+                         batch.payloads() if self.has_data else None)
+            self.dump()
+        self.version += 1
+
+    # --- reads (Msg5 semantics) ---
 
     def get_list(self, start_key: np.ndarray, end_key: np.ndarray
                  ) -> RecordBatch:
@@ -369,3 +655,141 @@ class Rdb:
         sources = [r.batch() for r in self.runs]
         sources.append(self.mem.batch())
         return merge_batches(sources)
+
+    def count_live(self) -> int:
+        """The live records, tombstones applied (a merge of keys only)."""
+        sources = [RecordBatch(r.keys) for r in self.runs]
+        sources.append(RecordBatch(self.mem.batch().keys))
+        return len(merge_batches(sources))
+
+    # --- the memtable checkpoint (Process::saveRdbTrees) ---
+
+    @_locked
+    def save(self) -> None:
+        """Persist the memtable to ``saved/`` without adding a run. The
+        new checkpoint is written in full to ``saved.new`` before the old
+        one goes, so a crash always leaves one that covers the records
+        (:meth:`load_saved` adopts a stranded ``saved.new``)."""
+        batch = self.mem.batch()
+        saved = self.dir / "saved"
+        newp = self.dir / "saved.new"
+        if newp.exists():
+            shutil.rmtree(newp)
+        if len(batch):
+            Run.write(newp, batch)
+            if saved.exists():
+                shutil.rmtree(saved)
+            newp.rename(saved)
+        elif saved.exists():
+            shutil.rmtree(saved)
+        self._journal_truncate()  # the checkpoint covers the journal
+
+    def load_saved(self) -> None:
+        """Load the memtable checkpoint into the memtable."""
+        saved = self.dir / "saved"
+        newp = self.dir / "saved.new"
+        if not saved.exists() and newp.exists():
+            try:
+                Run(newp)
+                newp.rename(saved)
+            except CorruptRunError:
+                shutil.rmtree(newp)  # torn: the journal still covers it
+        if saved.exists():
+            b = Run(saved).batch()
+            self.mem.add(b.keys.copy(),
+                         b.payloads() if self.has_data else None)
+
+    def _load_existing_runs(self) -> None:
+        """Open the runs in name order (verified; a corrupt one is
+        quarantined and the rest serve), then the checkpoint, then the
+        journal."""
+        for p in sorted(self.dir.glob("run_*")):
+            if not p.is_dir() or p.name.endswith((".tmp", ".corrupt")):
+                continue
+            parts = p.name.split("_")
+            self._next_run_id = max(self._next_run_id, int(parts[1]) + 1)
+            if len(parts) > 2 and parts[2].startswith("m"):
+                self._next_run_id = max(self._next_run_id,
+                                        int(parts[2][1:]) + 1)
+            try:
+                self.runs.append(Run(p))
+            except CorruptRunError as e:
+                self._quarantine(p, e)
+        self.load_saved()
+        if self.journal_enabled:
+            self._replay_journal()
+
+    # --- the write-ahead journal (Msg4 addsinprogress) ---
+
+    def _journal_append(self, keys: np.ndarray,
+                        blobs: list[bytes] | None) -> None:
+        """One append per add batch: a ``<IIQ`` header (records, CRC32 of
+        the body, body bytes), the key image, and for payload dbs the
+        uint32 blob lengths and the blobs; flushed, and fsynced under
+        ``OSSE_JOURNAL_FSYNC=1``."""
+        if not self.journal_enabled:
+            return
+        if self._journal_f is None:
+            self._journal_f = open(self._journal_path, "ab")  # noqa: SIM115
+        kb = np.ascontiguousarray(keys).tobytes()
+        if self.has_data:
+            blobs = blobs if blobs is not None else [b""] * len(keys)
+            lens = np.array([len(b) for b in blobs], np.uint32)
+            body = kb + lens.tobytes() + b"".join(blobs)
+        else:
+            body = kb
+        self._journal_f.write(_JOURNAL_HDR.pack(
+            len(keys), zlib.crc32(body) & 0xFFFFFFFF, len(body)) + body)
+        self._journal_f.flush()
+        if os.environ.get("OSSE_JOURNAL_FSYNC") == "1":
+            os.fsync(self._journal_f.fileno())
+
+    def _replay_journal(self) -> None:
+        """Re-apply the journaled batches. A torn or corrupt batch stops
+        the replay, and the file is cut to the valid prefix, so batches
+        appended after this open are not stranded behind it."""
+        if not self._journal_path.exists():
+            return
+        data = self._journal_path.read_bytes()
+        ks = self.key_dtype.itemsize
+        off, n_rec = 0, 0
+        while off + _JOURNAL_HDR.size <= len(data):
+            n, crc, blen = _JOURNAL_HDR.unpack_from(data, off)
+            off += _JOURNAL_HDR.size
+            if off + blen > len(data) or \
+                    (zlib.crc32(data[off:off + blen]) & 0xFFFFFFFF) != crc:
+                log.warning("%s: journal torn at byte %d; replay stops "
+                            "(unacknowledged tail)", self.name,
+                            off - _JOURNAL_HDR.size)
+                with open(self._journal_path, "r+b") as jf:
+                    jf.truncate(off - _JOURNAL_HDR.size)
+                break
+            body = data[off:off + blen]
+            off += blen
+            keys = np.frombuffer(body[:n * ks], dtype=self.key_dtype).copy()
+            blobs = None
+            if self.has_data:
+                lens = np.frombuffer(body[n * ks:n * ks + 4 * n], np.uint32)
+                p = n * ks + 4 * n
+                blobs = []
+                for ln in lens:
+                    blobs.append(body[p:p + int(ln)])
+                    p += int(ln)
+            self.mem.add(keys, blobs)
+            n_rec += int(n)
+        self.replayed = n_rec
+        if n_rec:
+            self.version += 1
+            self._gauge()
+            log.info("%s: replayed %d journaled records", self.name, n_rec)
+            if self.mem.nbytes >= self.max_memtable_bytes:
+                self.dump()
+
+    def _journal_truncate(self) -> None:
+        if not self.journal_enabled:
+            return
+        if self._journal_f is not None:
+            self._journal_f.close()
+            self._journal_f = None
+        if self._journal_path.exists():
+            self._journal_path.unlink()

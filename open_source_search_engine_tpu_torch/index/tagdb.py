@@ -229,5 +229,5 @@ class Tagdb:
         return int(v) if v is not None else None
 
     def save(self) -> None:
-        """Persist the memtable (a dump: rdblite has no journal yet)."""
-        self.rdb.dump()
+        """Checkpoint the memtable (no run is added)."""
+        self.rdb.save()

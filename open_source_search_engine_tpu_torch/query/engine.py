@@ -344,7 +344,7 @@ def get_device_index(coll: Collection):
     rdb = coll.posdb
     if rdb.version == di._built_version:
         return di
-    if base_fingerprint(rdb) == di._base_fp:
+    if base_fingerprint(rdb.runs) == di._base_fp:
         with lock:  # concurrent searches must not both mutate it
             di.refresh()  # delta only: O(memtable)
         return di
@@ -384,6 +384,20 @@ def _rebuild(coll: Collection, lock, old) -> None:
     finally:
         with lock:
             coll._di_rebuilding = False
+
+
+def drop_device_index(coll: Collection) -> None:
+    """Stop the collection's resident loop and drop its DeviceIndex, so
+    that no wave reads columns built from runs a repair or a wipe is about
+    to remove; the next search cold-starts a fresh index. A background
+    rebuild in flight finds its old index gone and does not swap in."""
+    from ..serve.tenancy import g_residency
+    g_residency.release_collection(coll)
+    loop = getattr(coll, "_resident_loop", None)
+    if loop is not None:
+        loop.stop()
+        coll._resident_loop = None
+    coll._device_index = None
 
 
 def build_device_index(coll: Collection, device=None):

@@ -586,7 +586,15 @@ class SearchHTTPServer:
         if path in ("/admin", "/admin/"):
             return 200, self._page_admin_index(query), "text/html"
         if path == "/admin/stats":
-            return _json(200, dict(self.stats))
+            stats = dict(self.stats)
+            # runs quarantined as corrupt (on open or by a scrub)
+            q = {f"{cn}:{rn}": rdb.quarantined
+                 for cn in self.colldb.names()
+                 for rn, rdb in self.colldb.get(cn).rdbs().items()
+                 if rdb.quarantined}
+            if q:
+                stats["quarantined_runs"] = q
+            return _json(200, stats)
         if path == "/admin/mem":
             return self._page_mem(query)
         if path == "/admin/cache":

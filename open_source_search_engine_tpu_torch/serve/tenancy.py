@@ -11,14 +11,17 @@ and an always-running :class:`~..query.resident.ResidentLoop`;
   ``resident_bytes()``. ``pin()`` exempts a tenant from eviction.
 * **Parked state.** Eviction stops the loop and drops the DeviceIndex,
   so its tensors go back to the caching allocator, and zeroes the gauge.
-  A cold start rebuilds the index (through the device build); the disk
-  base cache that makes re-entry cheap in the reference is not carried.
+  A cold start rebuilds the index: on CUDA through the device build; on
+  the CPU, or with the device build off, from the run set's disk base
+  cache (``posdb/devcache``) when one exists (read first, as in the
+  reference).
 * **Single-flight cold start.** Concurrent queries to a cold tenant
   trigger one build; riders wait on the leader's flight under their own
   deadline and shed (``DeadlineExceeded``) if the budget burns first.
 * **Pressure eviction.** The manager registers as a low-priority
-  membudget pressure handler, so device pressure parks cold tenants
-  before anything else is shed.
+  membudget pressure handler scoped to the "device" label, so device
+  pressure parks cold tenants before anything else is shed, and host
+  pressure never parks one (the device bytes are not host bytes).
 
 The reference reads the device bytes from the devwatch ledger when it is
 on; here ``resident_bytes()`` is the only source (the ledger waits for
@@ -102,7 +105,8 @@ class ResidencyManager:
     def attach(self, budget=None) -> None:
         """(Re-)register the pressure handler (idempotent by key)."""
         (budget or g_membudget).add_pressure_handler(
-            self._on_pressure, priority=PRESSURE_PRIORITY, key="tenancy")
+            self._on_pressure, priority=PRESSURE_PRIORITY, key="tenancy",
+            label="device")
 
     # --- the hot path -----------------------------------------------------
 
@@ -295,6 +299,16 @@ class ResidencyManager:
         self.park(name)
         with self._lock:
             return self._tenants.pop(name, None) is not None
+
+    def release_collection(self, coll) -> bool:
+        """``release`` the tenant of ``coll``'s name only if ``coll`` owns
+        its record (a same-named collection of another registry keeps
+        its own)."""
+        with self._lock:
+            t = self._tenants.get(getattr(coll, "name", "coll"))
+            if t is None or t.coll is not coll:
+                return False
+        return self.release(t.name)
 
     def stop_all(self) -> None:
         """Shutdown: park everything (records survive)."""

@@ -114,8 +114,8 @@ class Linkdb:
         return out
 
     def save(self) -> None:
-        """Persist the memtable (a dump: rdblite has no journal yet)."""
-        self.rdb.dump()
+        """Checkpoint the memtable (no run is added)."""
+        self.rdb.save()
 
 
 #: siteNumInlinks → siterank step table (Linkdb.cpp:7110-7128)

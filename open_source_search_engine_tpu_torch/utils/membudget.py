@@ -24,7 +24,17 @@ thread forever. Here the lock is re-entrant, and a ``set_gauge`` that
 arrives on a thread already inside a locked section is queued and
 applied at the start of the next locked call, so it neither waits nor
 mutates a table the interrupted frame is iterating; a finalizer queues
-its write unconditionally (``set_gauge_later``). Not carried: the
+its write unconditionally (``set_gauge_later``).
+
+Departure: the reference counts the ``device`` label against the one
+host limit (``max_mem``, sized beside a 16 GB TPU). A resident tenant of
+100,000 pages holds more than the 4 GiB default alone, so the limit was
+always spent: every memtable dumped early and a merge's reservation
+parked the serving tenant. Here the labels of :data:`DEVICE_LABELS` are
+bounded by their own cap only (``device_budget``); the host limit, the
+free bytes and the high water count host labels, and a pressure handler
+registered for the device label runs only in a device relief pass. Not
+carried: the
 reference's chaos-forced pressure in ``reserve`` and ``reserving()``
 (no caller yet).
 """
@@ -47,6 +57,10 @@ DEFAULT_LIMIT = 4 << 30
 
 #: the labels /admin/mem always lists
 LABELS = ("memtable", "merge", "pack", "docproc", "cache", "device")
+
+#: labels of device memory: bounded by the label's cap, never by the
+#: host limit
+DEVICE_LABELS = frozenset({"device"})
 
 
 class MemBudget:
@@ -118,8 +132,11 @@ class MemBudget:
     # --- accounting ------------------------------------------------------
 
     def _used_locked(self) -> int:
-        return (sum(self._reserved.values())
-                + sum(sum(g.values()) for g in self._gauges.values()))
+        """Host bytes: every label but the device labels."""
+        return (sum(v for lb, v in self._reserved.items()
+                    if lb not in DEVICE_LABELS)
+                + sum(sum(g.values()) for lb, g in self._gauges.items()
+                      if lb not in DEVICE_LABELS))
 
     def _label_used_locked(self, label: str) -> int:
         return (self._reserved.get(label, 0)
@@ -130,6 +147,7 @@ class MemBudget:
         return cap <= 0 or self._label_used_locked(label) <= cap
 
     def used(self, label: str | None = None) -> int:
+        """One label's bytes, or with no label the host bytes."""
         with self._locked():
             if label is None:
                 return self._used_locked()
@@ -138,6 +156,11 @@ class MemBudget:
     def free(self) -> int:
         with self._locked():
             return max(self.limit - self._used_locked(), 0)
+
+    def would_fit(self, nbytes: int) -> bool:
+        """Whether ``nbytes`` more fit the limit now (no relief runs)."""
+        with self._locked():
+            return self._used_locked() + int(nbytes) <= self.limit
 
     def _apply_gauge_locked(self, label: str, key: object,
                             nbytes: int) -> None:
@@ -187,8 +210,10 @@ class MemBudget:
         if nbytes <= 0:
             return True
 
+        on_host = label not in DEVICE_LABELS
+
         def _fits_locked() -> bool:
-            if self._used_locked() + nbytes > self.limit:
+            if on_host and self._used_locked() + nbytes > self.limit:
                 return False
             cap = self._caps.get(label, 0)
             return cap <= 0 or \
@@ -196,7 +221,8 @@ class MemBudget:
 
         with self._locked():
             fits = _fits_locked()
-            globally = self._used_locked() + nbytes <= self.limit
+            globally = not on_host or \
+                self._used_locked() + nbytes <= self.limit
         if not fits:
             # a label-cap-only breach relieves scoped to the label; a
             # global breach runs the full ladder
@@ -230,11 +256,13 @@ class MemBudget:
 
     def add_pressure_handler(self, fn: Callable[[int], int],
                              priority: int = 100,
-                             key: str | None = None) -> None:
+                             key: str | None = None,
+                             label: str | None = None) -> None:
         """Register ``fn(need_bytes) -> freed_bytes_hint``, run before a
         refusal in ascending ``priority``. Bound methods are held through
         ``weakref.WeakMethod`` so registering never pins the owner;
-        ``key`` makes registration idempotent."""
+        ``key`` makes registration idempotent; a handler given ``label``
+        runs only in a relief pass scoped to that label."""
         with self._locked():
             try:
                 ref: object = weakref.WeakMethod(fn)  # bound method
@@ -245,7 +273,7 @@ class MemBudget:
                 self._pressure = [e for e in self._pressure if e[2] != key]
             self._pressure_seq += 1
             self._pressure.append(
-                (int(priority), self._pressure_seq, key, ref))
+                (int(priority), self._pressure_seq, key, ref, label))
 
     def _relieve(self, need: int, label: str | None = None) -> None:
         """The shed pass: handlers ascending by priority, stopping the
@@ -254,6 +282,8 @@ class MemBudget:
             entries = sorted(self._pressure, key=lambda e: (e[0], e[1]))
         dead = []
         for entry in entries:
+            if entry[4] is not None and entry[4] != label:
+                continue
             fn = entry[3]()
             if fn is None:
                 dead.append(entry)  # owner collected: drop the handler

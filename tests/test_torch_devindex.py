@@ -20,6 +20,8 @@ refresh."""
 
 import dataclasses
 import os
+import shutil
+import time
 
 import numpy as np
 import pytest
@@ -325,3 +327,131 @@ def test_sparse_rows_hold_distinct_docs(pairs):
             for a, n in zip(p.s_start, p.s_len):
                 run = doc[a:a + n]
                 assert len(np.unique(run)) == n, (corpus, q, a, n)
+
+
+# --- the disk base cache and the run-set fingerprint ------------------------
+
+def _route_dir(base):
+    """The route corpus indexed by the JAX package and dumped, so its
+    posdb is one run: a node directory both packages open."""
+    jc = JCollection("cache", base)
+    jdocproc.index_batch(jc, route_docs(48))
+    jc.dump_all()
+
+
+def _cache_files(base):
+    return sorted((base / "coll" / "cache" / "posdb" / "devcache").glob(
+        "base_*.npz"))
+
+
+def _same_index(a, b):
+    for name in ("dir_termids", "base_df", "dir_dstart", "dir_pstart",
+                 "base_docids", "h_doc_col"):
+        x, y = getattr(a, name), getattr(b, name)
+        assert x.dtype == y.dtype and np.array_equal(x, y), name
+    assert (a.D_cap, a.Vc, a.dense_slot_of, a.cube_slot_of) == \
+        (b.D_cap, b.Vc, b.dense_slot_of, b.cube_slot_of)
+    for name, x in a.columns().items():
+        y = b.columns()[name]
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        if x.dtype == torch.float16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        assert torch.equal(x, y), name
+
+
+def test_host_oracle_writes_the_reference_cache(route_env, tmp_path,
+                                                monkeypatch):
+    """Both packages' host oracles write the same cache file (one name:
+    the key hashes the same fingerprint) with equal arrays."""
+    _route_dir(tmp_path / "j")
+    shutil.copytree(tmp_path / "j", tmp_path / "p")
+    monkeypatch.setenv("OSSE_DEVBUILD", "0")
+    JDeviceIndex(JCollection("cache", tmp_path / "j"))
+    tdi = DeviceIndex(Collection("cache", tmp_path / "p", device="cpu"))
+    assert tdi.base_source == "host"
+    (jf,), (pf,) = _cache_files(tmp_path / "j"), _cache_files(tmp_path / "p")
+    assert jf.name == pf.name
+    with np.load(jf) as a, np.load(pf) as b:
+        assert sorted(a.files) == sorted(b.files) and len(a.files) == 14
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype, k
+            assert np.array_equal(a[k], b[k]), k
+
+
+def test_port_reads_the_jax_cache(route_env, tmp_path, monkeypatch):
+    """A cache the JAX package wrote comes first in the port's build and
+    gives columns bitwise equal to the port's own device build."""
+    _route_dir(tmp_path / "j")
+    shutil.copytree(tmp_path / "j", tmp_path / "p")
+    monkeypatch.setenv("OSSE_DEVBUILD", "0")
+    JDeviceIndex(JCollection("cache", tmp_path / "j"))
+    monkeypatch.delenv("OSSE_DEVBUILD")
+    cached = DeviceIndex(Collection("cache", tmp_path / "j", device="cpu"))
+    built = DeviceIndex(Collection("cache", tmp_path / "p", device="cpu"))
+    assert (cached.base_source, built.base_source) == ("cache", "device")
+    assert not _cache_files(tmp_path / "p")   # a device build writes none
+    _same_index(cached, built)
+    for q, a, b in zip(ROUTE_SET, cached.search_batch(ROUTE_SET, topk=16),
+                       built.search_batch(ROUTE_SET, topk=16)):
+        assert a[2] == b[2] and list(a[0]) == list(b[0]), q
+        assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32)), q
+
+
+def test_fingerprint_sees_a_rewritten_run(tmp_path, monkeypatch):
+    """A run rewritten under the name and the length it had gets a new
+    fingerprint, so neither a live index nor the disk cache serves the
+    old base."""
+    from open_source_search_engine_tpu_torch.index import rdblite
+    from open_source_search_engine_tpu_torch.query.devindex import \
+        base_fingerprint
+    c = Collection("fp", tmp_path, device="cpu")
+    for i in range(3):
+        docproc.index_document(c, f"http://fp{i}.test/",
+                               f"<p>oldword fingerprint number{i}</p>")
+    c.dump_all()
+    monkeypatch.setenv("OSSE_DEVBUILD", "0")
+    di = DeviceIndex(c)
+    assert di.base_source == "host" and di.search("oldword")[2] == 3
+    run = c.posdb.runs[0]
+    keys = run.batch().keys
+    other = Collection("other", tmp_path, device="cpu")
+    for i in range(3):
+        docproc.index_document(other, f"http://fp{i}.test/",
+                               f"<p>newword fingerprint number{i}</p>")
+    new = other.posdb.mem.batch().keys
+    assert len(new) == len(keys) and new.tobytes() != keys.tobytes()
+    tmp = run.path.with_name("rewrite")
+    rdblite.Run.write(tmp, rdblite.RecordBatch(new))
+    shutil.rmtree(run.path)
+    tmp.rename(run.path)
+    again = Collection("fp", tmp_path, device="cpu")
+    assert [(r.path.name, len(r)) for r in again.posdb.runs] == \
+        [(run.path.name, len(run))]
+    assert base_fingerprint(again.posdb.runs) != di._base_fp
+    fresh = DeviceIndex(again)
+    assert fresh.base_source == "host"   # the old run set's cache missed
+    assert fresh.search("newword")[2] == 3
+    assert fresh.search("oldword")[2] == 0
+
+
+def test_a_merge_rebuilds_the_base_in_the_background(tmp_path):
+    c = Collection("mg", tmp_path, device="cpu")
+    for i in range(6):
+        docproc.index_document(c, f"http://mg{i}.test/",
+                               f"<p>merge serving words token{i}</p>")
+        c.posdb.dump()
+    old = engine.get_device_index(c)
+    want = old.search_batch(["merge serving", "token3"], topk=16)
+    c.posdb.attempt_merge(force=True)
+    assert len(c.posdb.runs) == 1
+    assert engine.get_device_index(c) is old
+    deadline = time.monotonic() + 60
+    while getattr(c, "_di_rebuilding", False):
+        assert time.monotonic() < deadline, "rebuild did not finish"
+        time.sleep(0.01)
+    fresh = engine.get_device_index(c)
+    assert fresh is not old and fresh.base_source == "device"
+    for a, b in zip(fresh.search_batch(["merge serving", "token3"], topk=16),
+                    want):
+        assert a[2] == b[2] and list(a[0]) == list(b[0])
+        assert np.array_equal(a[1].view(np.int32), b[1].view(np.int32))

@@ -76,6 +76,19 @@ for q in ("anchor gbmin:catid:0", "epsilon gbsortby:date",
 assert engine.search_device(d, "epsilon gbmin:catid:1 gbmax:catid:1"
                             ).total_matches == 1
 assert linkdb.site_rank(3) == 3 and catdb.Catdb
+from open_source_search_engine_tpu_torch.control import Process
+from open_source_search_engine_tpu_torch.control import dailymerge, rebalance
+j = tempfile.mkdtemp()
+e = Collection("jr", j, device="cpu")
+docproc.index_document(e, "http://j.test/", "<p>journal replay words</p>")
+del e   # no save, no dump: the reopen replays the journal
+e = Collection("jr", j, device="cpu")
+assert e.num_docs == 1 and len(e.posdb.mem) and not e.posdb.runs
+assert engine.search(e, "journal replay").total_matches == 1
+proc = Process()
+proc.register(e)
+proc.save_all()
+assert rebalance.repair(e) == 1 and dailymerge.parse_window("2-5")
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "open_source_search_engine_tpu"
