@@ -127,6 +127,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    node finds each of the 16 and answers all 80 pages as before the
    kill, its spawn-to-first-page seconds printed. Every wait there has a
    deadline and the child is killed on any failure;
+
+   (5h) the mesh at full width on one card (``mesh``, run before (5g)):
+   the bench collection, saved, is presented as shard 0 of a 1-shard
+   grid and resharded 1 -> 4 by ``control.rebalance.rebalance`` (timed);
+   ``engine.get_mesh_resident`` builds the four per-shard bases on
+   ``cuda:0`` (doc counts, base bytes, peak allocated; the memory check
+   releases the flat tenant only if four bases at the per-index budget
+   would not fit beside it). The host merge (``MeshResident.search_batch``,
+   site clustering off) answers the 64 queries equal to the flat device
+   route (totals, scores rtol=1e-5, docids by complete tie runs), with
+   its routes per shard, escalations and K1 and K2 launches, K2 held
+   bitwise on its largest per-shard FD wave; the in-program merge
+   (``serve_batch``, 2-per-site dedup) and ``sharded_search`` answer 16
+   queries each, equal to the host merge with clustering on
+   (``clustered`` exact), K1 launching once per wave and held bitwise
+   against its plain version on the largest stacked ``[S·B, T, 16, D]``
+   cube, timed beside its bound, with the host packing's share, the
+   merge's time and the escalations; 4 resident clients over the mesh
+   loop (qps, p50, max, waves); ``SearchHTTPServer(sharded=...)`` with
+   ``serve_mesh`` on and off, 4 clients x 4 queries, every page equal to
+   the in-process page, ``/admin/hosts`` reporting 4 shards and their
+   doc counts, no device error;
 6. run the golden QA suite (``tests/golden``) on the card through the
    flat path and through ``search_device``, against
    ``tests/golden/expected.json``;
@@ -830,6 +852,393 @@ def route_corpus(base, device):
         f"{device.upper()} == CPU")
     return {"routes": dict(on_dev.route_counts),
             "escalations": on_dev.escalations}
+
+
+def mesh(colldb, coll, queries, work, reset_counts, card):
+    """(5h) the mesh at full width on one card: the bench collection,
+    saved, is presented as shard 0 of a 1-shard grid and resharded 1 -> 4
+    by ``rebalance`` (timed); ``engine.get_mesh_resident`` builds the
+    four per-shard bases on ``cuda:0`` (doc counts, base bytes, peak
+    allocated). The host merge (``MeshResident.search_batch``, site
+    clustering off) answers the 64 queries equal to the flat device
+    route (totals, scores rtol=1e-5, docids by complete tie runs), with
+    its routes per shard, escalations and K1 and K2 launches; K2 is held
+    bitwise against its plain version on the largest per-shard FD wave.
+    The in-program merge (``serve_batch``, 2-per-site dedup on) and
+    ``sharded_search`` answer 16 of them each, equal to the host merge
+    with clustering on (``clustered`` exact): K1 launches once per wave,
+    and is held bitwise against its plain version on the largest stacked
+    cube, timed beside its bound; the host packing's share, the merge's
+    time and the escalations are printed. Then 4 resident clients over
+    the mesh loop, and ``SearchHTTPServer(sharded=...)`` with
+    ``serve_mesh`` on and off, 4 clients x 4 queries, every page equal
+    to the in-process page, ``/admin/hosts`` reporting the 4 shards. No
+    plain version runs on any path. Returns the phase's numbers."""
+    import threading
+
+    import numpy as np
+    import torch
+    from open_source_search_engine_tpu_torch.control.rebalance import \
+        rebalance
+    from open_source_search_engine_tpu_torch.corpus import (
+        assert_pages_match, assert_tie_run_parity)
+    from open_source_search_engine_tpu_torch.parallel import sharded_search
+    from open_source_search_engine_tpu_torch.query import engine, scorer
+    from open_source_search_engine_tpu_torch.query import \
+        fd_scores_kernel as fdk
+    from open_source_search_engine_tpu_torch.query.compiler import \
+        compile_query
+    from open_source_search_engine_tpu_torch.query import \
+        min_scores_kernel as msk
+    from open_source_search_engine_tpu_torch.query.devindex import \
+        HBM_USABLE_BYTES
+    from open_source_search_engine_tpu_torch.serve.server import (
+        SearchHTTPServer, render_results)
+    from open_source_search_engine_tpu_torch.serve.tenancy import \
+        g_residency
+    from open_source_search_engine_tpu_torch.utils import trace
+    from open_source_search_engine_tpu_torch.utils.membudget import \
+        g_membudget
+    from open_source_search_engine_tpu_torch.utils.stats import g_stats
+
+    t_phase = time.perf_counter()
+    SC = dict(topk=10, with_snippets=False, site_cluster=False)
+    out = {"card": card}
+    q16 = queries[:16]
+    # the flat device route's pages on the corpus as the earlier phases
+    # left it
+    flat = dict(zip(queries, engine.search_device_batch(coll, queries,
+                                                        **SC)))
+    flat_di = engine.get_device_index(coll)
+    flat_bytes = flat_di.resident_bytes()
+
+    def slot_plans(di, q):
+        """Each group's position quotas on ``di``, from its own live
+        dfs and presence, as ``DeviceIndex.plan`` draws them."""
+        plans = []
+        for g in compile_query(q).groups:
+            dfs = [di._df_of(sub.termid) for sub in g.sublists]
+            pres = [bool(di._druns_of(sub.termid)) and d > 0
+                    for sub, d in zip(g.sublists, dfs)]
+            plans.append(g.slot_plan(di.P, present=pres, df=dfs))
+        return plans
+    flat_plans = {q: slot_plans(flat_di, q) for q in queries}
+    del flat_di
+
+    # the grid: the saved collection directory as shard 0 of a 1-shard
+    # grid, resharded 1 -> 4
+    coll.save()
+    grid1 = work / "grid1"
+    grid1.mkdir()
+    (grid1 / "shard_000").symlink_to(colldb.base_dir.resolve(),
+                                     target_is_directory=True)
+    t0 = time.perf_counter()
+    sc = rebalance(coll.name, grid1, work / "grid4", 1, 4, device="cuda")
+    out["rebalance_s"] = time.perf_counter() - t0
+    for row in sc.grid:
+        for c in row:
+            c.conf.pqr_enabled = False
+            # the bases build from runs: posdb's remainder under the
+            # memtable bound goes to one (a no-op when the add dumped it)
+            c.posdb.dump()
+    assert sc.num_docs == coll.num_docs, (sc.num_docs, coll.num_docs)
+    docs = [c.num_docs for c in sc.shards]
+    log(f"[mesh] rebalance 1 -> 4 shards in {out['rebalance_s']:.1f} s: "
+        f"{sc.num_docs} docs, per shard {docs}")
+
+    # memory: each base is bounded by the resident budget of one index;
+    # the flat tenant stays unless the four bounds do not fit beside it
+    # (the allocator's cached blocks of the earlier phases go back first,
+    # so the card's free bytes are what the bases can take)
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    bound = 4 * HBM_USABLE_BYTES
+    cap = g_membudget.label_cap("device")
+    released = bound + (2 << 30) > free
+    if released:
+        g_residency.reset()
+        coll._device_index = None
+        torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0]
+    log(f"[mesh] memory: the flat tenant holds {flat_bytes / 2**30:.3f} GiB;"
+        f" four bases at most {bound / 2**30:.1f} GiB (4 x the per-index "
+        f"resident budget); free {free / 2**30:.1f} of "
+        f"{total / 2**30:.1f} GiB; membudget device cap {cap} (0 = "
+        f"uncapped; the mesh's bases are not tenants); flat tenant "
+        f"{'released' if released else 'kept'}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    mr = engine.get_mesh_resident(sc)
+    torch.cuda.synchronize()
+    out["bases_s"] = time.perf_counter() - t0
+    assert all(d == torch.device("cuda", 0) for d in mr.devices), \
+        mr.devices
+    out["shards"] = [dict(docs=di.n_docs, bytes=di.resident_bytes(),
+                          source=di.base_source, D_cap=di.D_cap,
+                          dense_rows=len(di.dense_slot_of),
+                          cube_rows=len(di.cube_slot_of))
+                     for di in mr.indexes]
+    out["bases_peak_gib"] = (torch.cuda.max_memory_allocated()
+                             - base0) / 2**30
+    log(f"[mesh] four bases on cuda:0 in {out['bases_s']:.2f} s: "
+        + "; ".join(f"shard {s} {x['docs']} docs, "
+                    f"{x['bytes'] / 2**30:.3f} GiB ({x['dense_rows']} "
+                    f"dense, {x['cube_rows']} cube rows, D_cap "
+                    f"{x['D_cap']}, {x['source']})"
+                    for s, x in enumerate(out["shards"]))
+        + f"; peak allocated above the flat tenant "
+        f"{out['bases_peak_gib']:.3f} GiB")
+    assert all(x["source"] == "device" for x in out["shards"])
+
+    # -- the host merge: the 64, every counter from 0 just before --
+    big_fd: list = []
+    fd_scores = fdk.fd_scores
+
+    def keep_fd(*a):
+        if not big_fd or a[0].numel() * a[3].numel() > \
+                big_fd[0][0].numel() * big_fd[0][3].numel():
+            big_fd[:] = [a]
+        return fd_scores(*a)
+
+    routes0 = [dict(di.route_counts) for di in mr.indexes]
+    esc0 = [di.escalations for di in mr.indexes]
+    reset_counts()
+    fdk.fd_scores = keep_fd
+    try:
+        t0 = time.perf_counter()
+        host = mr.search_batch(queries, **SC)
+        t_host = time.perf_counter() - t0
+    finally:
+        fdk.fd_scores = fd_scores
+    hk = (msk.launches, fdk.launches_tail + fdk.launches_notail,
+          msk.plain_calls + fdk.plain_calls)
+    routes = [{k: di.route_counts[k] - r0[k] for k in r0}
+              for di, r0 in zip(mr.indexes, routes0)]
+    esc = [di.escalations - e for di, e in zip(mr.indexes, esc0)]
+    assert hk[0] > 0 and hk[1] > 0 and hk[2] == 0, hk
+    # each shard funds a group's variants (synonyms, conjugates) by its
+    # own live df and presence, as the reference does, so where that
+    # differs from the whole corpus a page keeps other positions than
+    # the flat path's and scores otherwise: totals are held for every
+    # query, scores and tie runs where every shard draws the flat
+    # index's slot plans (the rest are held against the host-packed
+    # mesh paths below)
+    same = [q for q in queries
+            if all(slot_plans(di, q) == flat_plans[q] for di in mr.indexes)]
+    for q, res in zip(queries, host):
+        assert res.total_matches == flat[q].total_matches, q
+        if q in same:
+            assert_tie_run_parity(as_raw(res), as_raw(flat[q]),
+                                  ("host", q))
+    out["host_merge"] = dict(ms=t_host * 1e3, qps=len(queries) / t_host,
+                             routes=routes, escalations=esc,
+                             k1_launches=hk[0], k2_launches=hk[1],
+                             flat_slot_plans=len(same))
+    log(f"[mesh] host merge, {len(queries)} queries: {t_host * 1e3:.1f} ms "
+        f"({len(queries) / t_host:.2f} qps); routes per shard {routes}, "
+        f"escalations {esc}; K1 launches {hk[0]}, K2 launches {hk[1]}, "
+        f"plain calls {hk[2]}; every total equals the flat device "
+        f"route's, and every score and tie run of the {len(same)} queries "
+        "whose slot plans are the flat index's on every shard")
+    a = big_fd[0]
+    got, want = fdk.fd_scores(*a), fdk.fd_scores_plain(*a)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    k2 = dict(B=a[0].shape[0], T=a[0].shape[1] // 4, D=a[3].shape[0],
+              tail=a[6] is not None, ms=cuda_ms(lambda: fdk.fd_scores(*a)),
+              plain_ms=cuda_ms(lambda: fdk.fd_scores_plain(*a), reps=3,
+                               warmup=1),
+              max_abs_err=float((got[0] - want[0]).abs().max()))
+    k2["bound_ms"], k2["bound_by"] = k2_bound(a[0], a[1], a[2], a[3],
+                                              a[5], a[6])[:2]
+    out["k2_shard_wave"] = k2
+    log(f"[k2] largest per-shard FD wave of the host merge {k2}: "
+        "bitwise=True")
+    del big_fd, a, got, want
+
+    # -- the in-program merge and sharded_search: 16 each --
+    # The host merge orders a tie run by its shards' waves, the
+    # host-packed paths by the stacked cube's positions (in the reference
+    # too), so with site clustering on the two may keep other members of
+    # a run and count other drops. So the chain is: sharded_search with
+    # clustering off equals the host merge by tie runs (the stacked
+    # scoring and the Msg3a merge), and the in-program merge with its
+    # 2-per-site dedup equals sharded_search's host walk, clustered
+    # counts included (the dedup).
+    for q, a, b in zip(q16, [sharded_search(sc, q, **SC) for q in q16],
+                       host):
+        assert_tie_run_parity(as_raw(a), as_raw(b), ("unclustered", q))
+    ref = None
+    big_k1: list = []
+    ms_fused = scorer.min_scores_fused
+
+    def keep_k1(cube, freq_weight, counts, pvalid=None):
+        if cube.dim() == 4 and (not big_k1
+                                or cube.numel() > big_k1[0][0].numel()):
+            big_k1[:] = [(cube, freq_weight, counts, pvalid)]
+        return ms_fused(cube, freq_weight, counts, pvalid)
+
+    def timed(label, fn):
+        trace.reset()
+        reset_counts()
+        scorer.min_scores_fused = keep_k1
+        try:
+            t0 = time.perf_counter()
+            pages = fn()
+            wall = time.perf_counter() - t0
+        finally:
+            scorer.min_scores_fused = ms_fused
+        spans = {k: v for k, v in trace.totals.items()
+                 if k.startswith("mesh.")}
+        kl = (msk.launches, fdk.launches_tail + fdk.launches_notail,
+              msk.plain_calls + fdk.plain_calls)
+        assert kl[0] > 0 and kl[2] == 0, (label, kl)
+        for q, a, b in zip(q16, pages, ref or pages):
+            assert a.clustered == b.clustered, (label, q, a.clustered,
+                                                b.clustered)
+            assert_tie_run_parity(as_raw(a), as_raw(b), (label, q))
+        r = dict(ms=wall * 1e3, k1_launches=kl[0], k2_launches=kl[1],
+                 pack_share=spans["mesh.pack"][1] / wall,
+                 score_ms=spans["mesh.score"][1] * 1e3,
+                 merge_ms=spans["mesh.merge"][1] * 1e3,
+                 merge_calls=spans["mesh.merge"][0],
+                 score_calls=spans["mesh.score"][0])
+        return pages, r
+
+    loop = mr.serve_loop()
+    w0 = loop.waves_issued
+    ref, inprog = timed("in-program", lambda: mr.serve_batch(
+        q16, topk=10, with_snippets=False))
+    msi = mr._serve_idx
+    inprog["waves"] = loop.waves_issued - w0
+    inprog["escalations"] = msi.escalations
+    # one K1 launch per wave: every shard lives on cuda:0
+    assert inprog["k1_launches"] == inprog["score_calls"] == msi.waves, \
+        (inprog, msi.waves)
+    out["in_program"] = inprog
+    log(f"[mesh] in-program merge (serve_batch, 2-per-site dedup), "
+        f"{len(q16)} queries: {inprog['ms']:.1f} ms in {inprog['waves']} "
+        f"loop wave(s); host packing {inprog['pack_share']:.1%} of the "
+        f"wall, scoring {inprog['score_ms']:.1f} ms, merge "
+        f"{inprog['merge_ms']:.2f} ms in {inprog['merge_calls']} call(s), "
+        f"escalations {inprog['escalations']}; K1 launches "
+        f"{inprog['k1_launches']} (one per wave)")
+    _, shs = timed("sharded_search", lambda: [
+        sharded_search(sc, q, topk=10, with_snippets=False) for q in q16])
+    shs["escalations"] = shs["merge_calls"] - shs["score_calls"]
+    assert shs["k1_launches"] == shs["score_calls"] == len(q16), shs
+    out["sharded_search"] = shs
+    log(f"[mesh] sharded_search, {len(q16)} queries: {shs['ms']:.1f} ms; "
+        f"host packing {shs['pack_share']:.1%} of the wall, scoring "
+        f"{shs['score_ms']:.1f} ms, merge {shs['merge_ms']:.2f} ms, out_k "
+        f"escalations {shs['escalations']}; K1 launches "
+        f"{shs['k1_launches']} (one per query's wave); pages, clustered "
+        "counts included, equal the in-program merge's, and with "
+        "clustering off the host merge's by tie runs")
+    cube, fw, counts, pvalid = big_k1[0]
+    got = msk.min_scores_fused(cube, fw, counts)
+    want = k1_plain(msk, cube, pvalid, fw, counts)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    k1 = dict(shape=list(cube.shape),
+              ms=cuda_ms(lambda: msk.min_scores_fused(cube, fw, counts)),
+              plain_ms=cuda_ms(lambda: k1_plain(msk, cube, pvalid, fw,
+                                                counts), reps=3, warmup=1),
+              max_abs_err=float((got - want).abs().max()))
+    k1["bound_ms"], k1["bound_by"] = k1_bound(cube, counts)[:2]
+    out["k1_stacked"] = k1
+    log(f"[k1] largest stacked mesh cube {tuple(cube.shape)} (shards x "
+        f"queries, T, P, D): ms={k1['ms']:.4f} plain_ms="
+        f"{k1['plain_ms']:.3f} bound_ms={k1['bound_ms']:.5f} "
+        f"({k1['bound_by']}) bitwise=True")
+    del big_k1, cube, fw, counts, pvalid, got, want
+
+    # -- 4 resident clients over the mesh loop --
+    want = dict(zip(q16, mr.serve_batch(q16, topk=10,
+                                        with_snippets=False)))
+    lat: list = []
+    errors: list = []
+    start = threading.Barrier(4)
+
+    def client(c):
+        try:
+            start.wait(timeout=60)
+            for q in q16[c::4]:
+                t1 = time.perf_counter()
+                page = mr.serve(q, topk=10, with_snippets=False)
+                lat.append((time.perf_counter() - t1) * 1e3)
+                assert page.clustered == want[q].clustered, q
+                assert_tie_run_parity(as_raw(page), as_raw(want[q]), q)
+        except BaseException as exc:  # noqa: BLE001 — reported below
+            errors.append((c, repr(exc)))
+
+    w0, sw0 = loop.waves_issued, msi.waves
+    reset_counts()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in threads), "a client hung"
+    assert not errors, errors
+    assert msk.launches == msi.waves - sw0 and msk.plain_calls == 0
+    out["clients"] = dict(clients=4, qps=len(q16) / wall,
+                          p50_ms=statistics.median(lat), max_ms=max(lat),
+                          waves=loop.waves_issued - w0,
+                          k1_launches=msk.launches)
+    log(f"[mesh] 4 resident clients x 4 over the mesh loop: "
+        f"{wall * 1e3:.1f} ms, {out['clients']['qps']:.2f} qps; per query "
+        f"p50 {out['clients']['p50_ms']:.2f} ms, max "
+        f"{out['clients']['max_ms']:.2f} ms; {out['clients']['waves']} "
+        f"waves, K1 launches {msk.launches}; each client got its own pages")
+
+    # -- over HTTP, serve_mesh on and off --
+    srv = SearchHTTPServer(work / "meshsrv", port=0, device="cuda",
+                           sharded=sc)
+    srv.colldb.get("main").conf.result_cache_ttl = 0
+    srv.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        code, body = http_get(base, "/admin/hosts", {})
+        hosts = json.loads(body)
+        assert code == 200 and hosts["shards"] == 4 and \
+            hosts["docsPerShard"] == docs, (code, body)
+        for serve_mesh in (True, False):
+            srv.conf.serve_mesh = serve_mesh
+            inproc = (mr.serve_batch(q16, topk=10) if serve_mesh else
+                      [sharded_search(sc, q, topk=10) for q in q16])
+            refp = {q: render_results(r, "json")[0]
+                    for q, r in zip(q16, inproc)}
+            g_stats.reset()
+            reset_counts()
+            wall, hl, pages = http_clients(base, q16, 4, "main")
+            kl = (msk.launches, msk.plain_calls + fdk.plain_calls)
+            for q in q16:
+                assert_pages_match(pages[q], refp[q], (serve_mesh, q))
+            errs = g_stats.counters.get("serve.device_error", 0)
+            assert kl[0] > 0 and kl[1] == 0 and errs == 0, (kl, errs)
+            key = "http_mesh" if serve_mesh else "http_sharded_search"
+            out[key] = dict(qps=len(q16) / wall,
+                            p50_ms=statistics.median(hl), max_ms=max(hl),
+                            k1_launches=kl[0])
+            log(f"[mesh] HTTP, serve_mesh={serve_mesh}, 4 clients x 4: "
+                f"{wall * 1e3:.1f} ms, {out[key]['qps']:.2f} qps, p50 "
+                f"{out[key]['p50_ms']:.2f} ms, max {out[key]['max_ms']:.2f}"
+                f" ms; K1 launches {kl[0]}, plain calls {kl[1]}, device "
+                f"errors {errs}; every page equals the in-process page")
+        log(f"[mesh] /admin/hosts: {hosts}")
+    finally:
+        srv.stop()
+        mr.stop()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[mesh] phase (5h) in {out['phase_s']:.1f} s")
+    sc._mesh_resident = None
+    del mr, sc
+    torch.cuda.empty_cache()
+    return out
 
 
 def run_counts(coll) -> dict:
@@ -1951,6 +2360,10 @@ def main() -> int:
 
     route = route_corpus(work / "route", "cuda")
 
+    meshed = mesh(colldb, coll, queries, work, reset_counts, smi)
+    g_residency.reset()
+    coll._device_index = None
+
     durable = durability(colldb, coll.name, queries, work, reset_counts,
                          "cuda")
     del coll
@@ -2002,7 +2415,17 @@ def main() -> int:
         "launches_durability": {
             "reopened_batch": durable["reopen_launches"][0],
             "clients_across_merge": durable["merge_launches"][0]},
-        "max_abs_err": max_err,
+        "launches_mesh": {
+            "host_merge": meshed["host_merge"]["k1_launches"],
+            "in_program": meshed["in_program"]["k1_launches"],
+            "in_program_waves": meshed["in_program"]["waves"],
+            "sharded_search": meshed["sharded_search"]["k1_launches"],
+            "resident_clients": meshed["clients"]["k1_launches"],
+            "http_mesh": meshed["http_mesh"]["k1_launches"],
+            "http_sharded_search":
+                meshed["http_sharded_search"]["k1_launches"]},
+        "mesh_stacked_cube": meshed["k1_stacked"],
+        "max_abs_err": max(max_err, meshed["k1_stacked"]["max_abs_err"]),
         "ms": k1d_ms, "parent_ms": k1d_par, "plain_ms": k1d_plain_ms,
         "bound_ms": k1d_b_ms,
         "bound_by": k1d_by, "library_ms": None, "parity": "pass",
@@ -2033,8 +2456,11 @@ def main() -> int:
         "launches_durability": {
             "reopened_batch": durable["reopen_launches"][1],
             "clients_across_merge": durable["merge_launches"][1]},
+        "launches_mesh": {
+            "host_merge": meshed["host_merge"]["k2_launches"]},
+        "mesh_shard_wave": meshed["k2_shard_wave"],
         "launches_tail_notail": list(k2_split),
-        "max_abs_err": k2_err, "ms": k2_ms, "parent_ms": k2_par,
+        "max_abs_err": max(k2_err, meshed["k2_shard_wave"]["max_abs_err"]), "ms": k2_ms, "parent_ms": k2_par,
         "plain_ms": k2_plain_ms,
         "bound_ms": k2_b_ms, "bound_by": k2_by, "library_ms": None,
         "parity": "pass", "shape": k2_shape, "regs": k2_regs,
@@ -2060,7 +2486,7 @@ def main() -> int:
         "device_build_spans_s": build_spans, "resident": resident,
         "served": served, "numeric": numeric, "route_corpus": route,
         "cold_start_s": t_cold, "cache_read_s": t_cached,
-        "durability": durable,
+        "durability": durable, "mesh": meshed,
         "index_docs_s": coll_rate}}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

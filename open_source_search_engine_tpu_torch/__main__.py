@@ -5,6 +5,8 @@
     python -m open_source_search_engine_tpu_torch search --dir ./data "query"
     python -m open_source_search_engine_tpu_torch save --dir ./data
     python -m open_source_search_engine_tpu_torch repair --dir ./data
+    python -m open_source_search_engine_tpu_torch rebalance --dir ./grid \
+        --out ./grid4 --old-shards 1 --new-shards 4
 
 Each takes ``--torch-device {cuda,cpu}`` (default ``cuda``): the device
 queries score on. ``serve`` runs the node's HTTP server with the autosave
@@ -16,7 +18,8 @@ write is journaled first, so a kill -9 loses no acknowledged ``/inject``.
 ``inject`` saves after indexing, and exits 1 with ``"error": "banned"``
 when a tagdb ``manualban`` drops the page. ``save`` checkpoints every
 collection of the directory; ``repair`` rebuilds a collection's posdb,
-clusterdb and linkdb from its titledb.
+clusterdb and linkdb from its titledb. ``rebalance`` (``gb scale``)
+re-shards a grid of ``shard_XXX`` directories into a new one, saved.
 """
 
 from __future__ import annotations
@@ -112,6 +115,19 @@ def cmd_repair(args) -> int:
     return 0
 
 
+def cmd_rebalance(args) -> int:
+    """``gb scale`` (main.cpp:2356): grow or shrink the shard grid."""
+    from .control.rebalance import rebalance
+
+    dst = rebalance(args.coll, args.dir, args.out,
+                    old_n_shards=args.old_shards,
+                    new_n_shards=args.new_shards,
+                    n_replicas=args.replicas, device=args.torch_device)
+    print(json.dumps({"shards": dst.n_shards, "docs": dst.num_docs,
+                      "out": args.out}))
+    return 0
+
+
 def cmd_search(args) -> int:
     from .index.collection import Collection
     from .query import engine
@@ -169,6 +185,15 @@ def main(argv: list[str] | None = None) -> int:
                        "linkdb from titledb")
     _add_common(p)
     p.set_defaults(fn=cmd_repair)
+
+    p = sub.add_parser("rebalance",
+                       help="re-shard a collection grid (gb scale)")
+    _add_common(p)
+    p.add_argument("--out", required=True, help="new grid directory")
+    p.add_argument("--old-shards", type=int, required=True)
+    p.add_argument("--new-shards", type=int, required=True)
+    p.add_argument("--replicas", type=int, default=1)
+    p.set_defaults(fn=cmd_rebalance)
 
     args = ap.parse_args(argv)
     return args.fn(args)

@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.ghash import hash64_array
+
 # field maxima (Posdb.h:62-71)
 MAXSITERANK = 0x0F
 MAXLANGID = 0x3F
@@ -170,3 +172,31 @@ def end_key(termid: int) -> np.ndarray:
     k["n1"] = np.uint64(0xFFFFFFFFFFFFFFFF)
     k["n0"] = np.uint16(0xFFFF)
     return k
+
+
+def shard_of_docid(docid, num_shards: int) -> np.ndarray:
+    """docId → shard (reference ``Hostdb::getShardNum`` for posdb keys,
+    ``Hostdb.cpp:2486-2504``): a stable avalanche hash mod
+    ``num_shards``."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    return (hash64_array(_u64(docid))
+            % np.uint64(num_shards)).astype(np.int32)
+
+
+def shard_of_termid(termid, num_shards: int) -> np.ndarray:
+    """termId → shard for the shardByTermId checksum terms (reference
+    ``Hostdb::getShardNumByTermId``, ``Hostdb.cpp:2468``)."""
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    return (hash64_array(_u64(termid))
+            % np.uint64(num_shards)).astype(np.int32)
+
+
+def shard_of_keys(keys: np.ndarray, num_shards: int) -> np.ndarray:
+    """Owning shard per key: by termid where the shardByTermId bit is
+    set, else by docid."""
+    f = unpack(keys)
+    by_doc = shard_of_docid(f["docid"], num_shards)
+    by_term = shard_of_termid(f["termid"], num_shards)
+    return np.where(f["shardbytermid"].astype(bool), by_term, by_doc)

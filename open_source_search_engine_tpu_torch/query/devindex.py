@@ -1142,6 +1142,14 @@ class DeviceIndex:
                             self.Nb + pa, pb - pa))
         return out
 
+    @property
+    def df_generation(self):
+        """The posdb version this resident base was built at: the memo
+        key of a cluster-wide df cache (``MeshResident._global_df`` sums
+        ``_df_of`` over the shards, and a shard's sum holds until its own
+        base moves)."""
+        return self._built_version
+
     def _df_of(self, termid: int) -> int:
         """Exact document frequency under pending deletes and re-adds:
         base df − superseded-doc pairs + delta df."""
@@ -1154,11 +1162,16 @@ class DeviceIndex:
             df += int(self.delta_df[j])
         return max(df, 0)
 
-    def plan(self, qplan: QueryPlan, sort_base_of=None) -> ResidentPlan:
+    def plan(self, qplan: QueryPlan, df_of=None,
+             total_docs: int | None = None,
+             sort_base_of=None) -> ResidentPlan:
         """The host plan of one query: its dense, sparse, cube and
         posting-scatter rows, group flags, route eligibility and numeric
-        operators. ``sort_base_of`` overrides this index's sort-key base
-        (a mesh passes the cluster-wide minimum)."""
+        operators. ``df_of``, ``total_docs`` and ``sort_base_of``
+        override this index's term document frequencies, doc count and
+        sort-key base: a mesh passes the cluster-wide values, so every
+        shard weighs terms alike and cross-shard scores merge (the
+        reference ships global termFreqWeights in the Msg39 request)."""
         T = _bucket(max(len(qplan.groups), 1), T_FLOOR)
         drows, srows, crows, prows = [], [], [], []
         dfs = np.zeros(max(len(qplan.groups), 1), np.int64)
@@ -1176,7 +1189,8 @@ class DeviceIndex:
             sub_druns = [self._druns_of(s.termid) for s in subs]
             # quota only over sublists with LIVE postings (df under
             # tombstones), as the host packer's fetched-list mask, and
-            # the local live dfs fund the variants on both paths
+            # the local live dfs fund the variants on both paths (never
+            # the cluster-wide df_of: the host path cannot see it)
             sub_live_df = [self._df_of(s.termid) for s in subs]
             sp = g.slot_plan(
                 self.P,
@@ -1209,7 +1223,7 @@ class DeviceIndex:
                                           min(pl - off, F2_SCATTER_MAX),
                                           g_i, base, quota, syn, is_base))
                     any_postings = True
-                gdf = max(gdf, self._df_of(sub.termid))
+                gdf = max(gdf, (df_of or self._df_of)(sub.termid))
             dfs[g_i] = gdf
             groups_have_postings.append(any_postings)
             # FD: cube runs must be base runs at quarter-aligned (base,
@@ -1250,7 +1264,9 @@ class DeviceIndex:
 
         required, negative, scored, counts = group_flags(qplan, T)
         freqw = _pad1(weights.term_freq_weight(
-            dfs[: len(qplan.groups)], max(self.coll.num_docs, 1)), T, 0.5)
+            dfs[: len(qplan.groups)],
+            max(total_docs if total_docs is not None
+                else self.coll.num_docs, 1)), T, 0.5)
         da = np.array(drows, np.int64).reshape(-1, 5)
         sa = np.array(srows, np.int64).reshape(-1, 7)
         ca = np.array(crows, np.int64).reshape(-1, 6)
@@ -1301,32 +1317,45 @@ class DeviceIndex:
         """One query → (docids, scores, n_matched)."""
         return self.search_batch([q], topk=topk, lang=lang)[0]
 
-    def search_batch(self, queries, topk: int = 64, lang: int = 0):
+    def search_batch(self, queries, topk: int = 64, lang: int = 0,
+                     df_of=None, total_docs: int | None = None,
+                     sort_base_of=None):
         """B queries → [(docids uint64, scores float32, n_matched)].
         Drivers with a bounded doc set take F1; corpus-wide drivers take
-        FD when their groups are quarter-aligned cube rows, else F2."""
-        return self.collect_batch(self.issue_batch(queries, topk=topk,
-                                                   lang=lang))
+        FD when their groups are quarter-aligned cube rows, else F2. The
+        overrides are :meth:`plan`'s."""
+        return self.collect_batch(self.issue_batch(
+            queries, topk=topk, lang=lang, df_of=df_of,
+            total_docs=total_docs, sort_base_of=sort_base_of))
 
-    def issue_batch(self, queries, topk: int = 64,
-                    lang: int = 0) -> PendingBatch:
+    def issue_batch(self, queries, topk: int = 64, lang: int = 0,
+                    df_of=None, total_docs: int | None = None,
+                    sort_base_of=None) -> PendingBatch:
         """Plan, route and queue the first round of waves on the device,
         with the copy of their result rows to the host: nothing waits
-        for the device."""
+        for the device. Plans with a cluster-wide override are not
+        cached: their values belong to the caller."""
         with trace.span("devindex.plan", queries=len(queries)):
-            # the generation is read before the plans build: a write
-            # landing meanwhile leaves the stored entries dead, never a
-            # pre-write plan passing as fresh
-            pgen = self._plan_cache.current_gen()
-            plans = []
-            for q in queries:
-                qp = q if isinstance(q, QueryPlan) else compile_query(q, lang)
-                ck = (qp.raw, qp.lang)
-                hit, p = self._plan_cache.lookup(ck, gen=pgen)
-                if not hit:
-                    p = self.plan(qp)
-                    self._plan_cache.put(ck, p, gen=pgen)
-                plans.append(p)
+            qplans = [q if isinstance(q, QueryPlan)
+                      else compile_query(q, lang) for q in queries]
+            if df_of is None and total_docs is None \
+                    and sort_base_of is None:
+                # the generation is read before the plans build: a write
+                # landing meanwhile leaves the stored entries dead, never
+                # a pre-write plan passing as fresh
+                pgen = self._plan_cache.current_gen()
+                plans = []
+                for qp in qplans:
+                    ck = (qp.raw, qp.lang)
+                    hit, p = self._plan_cache.lookup(ck, gen=pgen)
+                    if not hit:
+                        p = self.plan(qp)
+                        self._plan_cache.put(ck, p, gen=pgen)
+                    plans.append(p)
+            else:
+                plans = [self.plan(qp, df_of=df_of, total_docs=total_docs,
+                                   sort_base_of=sort_base_of)
+                         for qp in qplans]
         live = [i for i, p in enumerate(plans) if p.matchable]
         results = [(np.empty(0, np.uint64), np.empty(0, np.float32), 0)
                    ] * len(plans)

@@ -106,6 +106,9 @@ class SearchResults:
     suggestion: str | None = None  # "did you mean" (Speller)
     #: gbfacet: results — field → [(value, count)]
     facets: dict = field(default_factory=dict)
+    #: a whole shard (every twin) was down: its documents are missing
+    #: from this answer
+    degraded: bool = False
     #: scoring passes run (one min-score launch each), escalations
     #: included
     passes: int = 0
@@ -410,6 +413,23 @@ def spawn_resident_loop(di_fn, gen_fn, **kw):
     """A ResidentLoop over ``di_fn`` (see :mod:`.resident`)."""
     from .resident import ResidentLoop
     return ResidentLoop(di_fn, gen_fn=gen_fn, **kw)
+
+
+def get_mesh_resident(sc):
+    """The ShardedCollection's :class:`~..parallel.sharded.MeshResident`
+    (one resident base per shard and the in-program merge under a
+    ResidentLoop), created at first use like the flat device index.
+    Imported here: ``parallel.sharded`` imports this module."""
+    from ..parallel.sharded import MeshResident
+    mr = getattr(sc, "_mesh_resident", None)
+    if mr is not None:
+        return mr
+    with _DI_CREATE_LOCK:
+        mr = getattr(sc, "_mesh_resident", None)
+        if mr is None:
+            mr = MeshResident(sc)
+            sc._mesh_resident = mr
+    return mr
 
 
 def get_resident_loop(coll: Collection, deadline=None):

@@ -272,12 +272,14 @@ def local_sort_base(coll: Collection, fld: str,
     return float(av[fin].min()) if fin.any() else None
 
 
-def field_arrays(coll: Collection, plan: QueryPlan, cand: np.ndarray):
+def field_arrays(coll: Collection, plan: QueryPlan, cand: np.ndarray,
+                 sort_base: float | None = None):
     """(filt, sortc) candidate arrays for the numeric operators: the AND
     of every field's range (NaN fails both bounds) and the sort key
-    ``key - base + 1`` (0.25 for a missing field; ``base`` is the
-    collection's minimum key), formed in float64 and cast to float32
-    once."""
+    ``key - base + 1`` (0.25 for a missing field; ``base`` is
+    ``sort_base``, the cross-shard minimum on the sharded paths, else
+    the collection's minimum key), formed in float64 and cast to
+    float32 once."""
     filt = sortc = None
     if plan.filters:
         filt = np.ones(len(cand), bool)
@@ -289,7 +291,8 @@ def field_arrays(coll: Collection, plan: QueryPlan, cand: np.ndarray):
         fld, desc = plan.sortby
         dv = _field_values(coll, fld, cand)
         key = dv if desc else -dv
-        base = local_sort_base(coll, fld, desc)
+        base = sort_base if sort_base is not None \
+            else local_sort_base(coll, fld, desc)
         if base is None:
             base = 0.0  # no finite values anywhere: every key is 0.25
         sortc = np.where(np.isfinite(key), key - base + 1.0,
@@ -297,9 +300,13 @@ def field_arrays(coll: Collection, plan: QueryPlan, cand: np.ndarray):
     return filt, sortc
 
 
-def prepare_query(coll: Collection, plan: QueryPlan) -> PreparedQuery:
+def prepare_query(coll: Collection, plan: QueryPlan,
+                  sort_base: float | None = None) -> PreparedQuery:
     """Fetch termlists, pick the driver, intersect candidates. ``cand``
-    comes back empty when no doc can match (an empty required list)."""
+    comes back empty when no doc can match (an empty required list), but
+    the fetched lists are kept: cluster-wide term frequencies count a
+    shard's postings even where it has no candidate. ``sort_base``: see
+    :func:`field_arrays`."""
     lists = fetch_group_lists(coll, plan)
     req = [i for i, g in enumerate(plan.groups)
            if g.required and not g.negative]
@@ -318,7 +325,7 @@ def prepare_query(coll: Collection, plan: QueryPlan) -> PreparedQuery:
             else np.empty(0, np.uint64))
         driver = (max(range(len(lists)), key=lambda i: len(uniques[i]))
                   if lists else -1)
-        fa, sa = field_arrays(coll, plan, cand)
+        fa, sa = field_arrays(coll, plan, cand, sort_base=sort_base)
         return PreparedQuery(plan=plan, lists=lists, cand=cand,
                              driver=driver if len(cand) else -1,
                              freq_weight=freqw, unique_counts=unique_counts,
@@ -334,7 +341,7 @@ def prepare_query(coll: Collection, plan: QueryPlan) -> PreparedQuery:
     for i in req:
         if i != driver and len(cand):
             cand = cand[np.isin(cand, uniques[i], assume_unique=True)]
-    fa, sa = field_arrays(coll, plan, cand)
+    fa, sa = field_arrays(coll, plan, cand, sort_base=sort_base)
     return PreparedQuery(plan=plan, lists=lists, cand=cand, driver=driver,
                          freq_weight=freqw, unique_counts=unique_counts,
                          filt_all=fa, sort_all=sa)

@@ -28,17 +28,21 @@ from .packer import MAX_POSITIONS, TABLE_SIZE, PackedQuery
 def scatter_cube(doc_idx, payload, slot, valid, n_docs_padded: int,
                  n_positions: int):
     """Scatter posting rows (1 row = 1 group) into the dense position
-    cube ``[T, P, D]`` + validity. Padding rows carry ``doc_idx = D``
+    cube ``[T, P, D]`` + validity; ``[N, T, L]`` rows (N queries or
+    shards) give ``[N, T, P, D]``. Padding rows carry ``doc_idx = D``
     and land in an extra column that is dropped."""
-    T, L = doc_idx.shape
+    *lead, T, L = doc_idx.shape
     D, P = n_docs_padded, n_positions
-    g_of = torch.arange(T, device=doc_idx.device)[:, None].expand(T, L)
+    dev = doc_idx.device
+    g_of = torch.arange(T, device=dev)[:, None].expand(*lead, T, L)
     idx = (g_of, slot.long(), doc_idx.long())
-    cube = torch.zeros((T, P, D + 1), dtype=torch.int32,
-                       device=doc_idx.device)
+    if lead:
+        idx = (torch.arange(lead[0], device=dev)[:, None, None]
+               .expand(*lead, T, L),) + idx
+    cube = torch.zeros((*lead, T, P, D + 1), dtype=torch.int32, device=dev)
     cube.index_put_(idx, payload)
-    pvalid = torch.zeros((T, P, D + 1), dtype=torch.bool,
-                         device=doc_idx.device)
+    pvalid = torch.zeros((*lead, T, P, D + 1), dtype=torch.bool,
+                         device=dev)
     pvalid.index_put_(idx, valid)
     return cube[..., :D].contiguous(), pvalid[..., :D]
 
@@ -101,9 +105,13 @@ def score_cube(cube, pvalid, freq_weight, required, negative, scored,
     [TABLE_SIZE]; siterank/doclang [D]; ``filt`` bool [D] (the range
     gate) and ``sortc`` float32 [D] (the sort keys), each None when the
     query has no such operator. Returns (match count, top scores [k],
-    top doc indices [k])."""
-    T, P, D = cube.shape
+    top doc indices [k]). With a leading N axis on every array, and
+    ``qlang``/``n_docs`` as [N] tensors, N rows score at once with one
+    min-score launch, each row bitwise what it gives alone."""
+    D = cube.shape[-1]
     min_score, present = min_scores(cube, pvalid, freq_weight, counts)
+    if torch.is_tensor(n_docs):
+        n_docs, qlang = n_docs[:, None], qlang[:, None]
     # match: every required group present, no negative present, truth
     # table satisfied, inside the real candidate range
     in_range = torch.arange(D, device=cube.device) < n_docs
@@ -118,19 +126,67 @@ def score_cube(cube, pvalid, freq_weight, required, negative, scored,
         final = min_score * final_multipliers(siterank, doclang, qlang)
         final = torch.where(match, final, 0.0)
     top_scores, top_idx = top_k(final, min(topk, D))
-    return match.sum(), top_scores, top_idx
+    return match.sum(dim=-1), top_scores, top_idx
 
 
 def score_core(doc_idx, payload, slot, valid, freq_weight, required,
                negative, scored, counts, table, siterank, doclang,
                qlang, n_docs, n_positions: int = MAX_POSITIONS,
                topk: int = 64, filt=None, sortc=None):
-    """Host-packed entry: scatter rows (1 row = 1 group), then score."""
+    """Host-packed entry: scatter rows (1 row = 1 group), then score
+    (one query, or N with a leading axis: see :func:`score_cube`)."""
     cube, pvalid = scatter_cube(doc_idx, payload, slot, valid,
-                                siterank.shape[0], n_positions)
+                                siterank.shape[-1], n_positions)
     return score_cube(cube, pvalid, freq_weight, required, negative,
                       scored, counts, table, siterank, doclang, qlang,
                       n_docs, topk=topk, filt=filt, sortc=sortc)
+
+
+def merge_dedup_topk(g_scores, g_docids, g_sh, out_k: int,
+                     max_per_site: int = 2):
+    """The Msg3a merge tail for a batch of queries: the global top-k over
+    each query's gathered ``[S, k]`` per-shard blocks, then the clusterdb
+    2-per-site dedup (Msg51) in the same pass, so the recall decision
+    needs no host round trip.
+
+    ``g_scores``/``g_docids``/``g_sh`` are ``[B, S, k]`` (scores, int64
+    docids, int64 sitehash). Over each query's merged window ``kk =
+    min(out_k, S·k)``, survivors compacted to a prefix in score order,
+    returns (n_kept [B], n_dropped [B], docids, sitehash, scores,
+    cumdrop), the last four ``[B, kk]``; ``cumdrop[i]`` counts the
+    clustered-away rows above survivor row i (exclusive), so the host
+    can rebuild the greedy walk's clustered counter at any page cut.
+
+    The greedy accept-walk of ``engine.build_results`` keeps a row iff
+    fewer than ``max_per_site`` same-site rows were accepted above it;
+    since only a site's first ``max_per_site`` rows are ever accepted,
+    that is "fewer than ``max_per_site`` same-site live rows above it",
+    one masked ``[kk, kk]`` triangular count. Sitehash 0 (no clusterdb
+    record) is exempt, like the walk's ``if sh`` gate. Ties take the
+    lower gather position first (``lax.top_k``'s order)."""
+    B = g_scores.shape[0]
+    flat = g_scores.reshape(B, -1)
+    kk = min(out_k, flat.shape[1])
+    m_sc, m_pos = top_k(flat, kk)
+    m_doc = torch.gather(g_docids.reshape(B, -1), 1, m_pos)
+    m_sh = torch.gather(g_sh.reshape(B, -1), 1, m_pos)
+    live = m_sc > 0.0
+    same = (m_sh[:, :, None] == m_sh[:, None, :]) & live[:, None, :]
+    earlier = torch.tril(torch.ones((kk, kk), dtype=torch.bool,
+                                    device=flat.device), diagonal=-1)
+    occ = (same & earlier).sum(dim=-1)
+    keep = live & ((m_sh == 0) | (occ < max_per_site))
+    dropped = (live & ~keep).to(torch.int64)
+    cumdrop = torch.cumsum(dropped, dim=1) - dropped
+    rank = torch.arange(kk, device=flat.device)[None, :]
+    # stable compaction: survivors first in score order, then the
+    # clustered and dead rows
+    order = torch.argsort(torch.where(keep, rank, kk + rank), dim=1)
+    sc_s = torch.where(torch.gather(keep, 1, order),
+                       torch.gather(m_sc, 1, order), 0.0)
+    return (keep.sum(dim=1), dropped.sum(dim=1),
+            torch.gather(m_doc, 1, order), torch.gather(m_sh, 1, order),
+            sc_s, torch.gather(cumdrop, 1, order))
 
 
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:

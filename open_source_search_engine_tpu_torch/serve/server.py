@@ -26,6 +26,13 @@ Endpoints (the reference's query-string names: ``q``, ``n``, ``s``,
   ``/admin/tenants``, ``/admin/traces``
 * ``GET /`` — a minimal search form
 
+With ``sharded=`` (a :class:`~..parallel.sharded.ShardedCollection`)
+the server fronts the mesh: ``/search`` goes through the mesh's resident
+loop (``engine.get_mesh_resident(...).serve``, the in-program merge)
+when the ``serve_mesh`` parm is on, else through ``sharded_search``
+under the core lock; ``/get``, ``/inject`` and ``/delete`` route to the
+owning shards, and ``/admin/hosts`` shows the shard map.
+
 Departures from the reference:
 
 * **No host fallback.** The reference answers a failed device batch
@@ -45,10 +52,10 @@ Departures from the reference:
   telemetry pages (``/admin/jit``, ``/admin/hbm``, ``/admin/device``,
   ``/admin/profiler``, ``/admin/graph``) with the statsdb sample ring
   (its SLO evaluation is kept, as the server's SLO tick), and
-  the fleet pages (``/admin/hosts``, ``/admin/transport``,
-  ``/admin/perf``). The ``sharded=`` and ``cluster=`` arguments raise
-  NotImplementedError (the mesh), and ``/metrics`` has no devwatch,
-  jitwatch or transport families.
+  the fleet pages (``/admin/transport``, ``/admin/perf``). The
+  ``cluster=`` argument raises NotImplementedError (the multi-process
+  cluster), and ``/metrics`` has no devwatch, jitwatch or transport
+  families.
 """
 
 from __future__ import annotations
@@ -89,15 +96,14 @@ log = get_logger("http")
 
 #: path → the ROADMAP queue item that carries it; each answers 501
 NOT_PORTED = {
-    "/crawlbot": "queue item 12 (the spider and crawlbot)",
-    "/admin/jit": "queue item 4 (telemetry: jitwatch)",
-    "/admin/hbm": "queue item 4 (telemetry: devwatch)",
-    "/admin/device": "queue item 4 (telemetry: devwatch)",
-    "/admin/profiler": "queue item 4 (telemetry: the sampling profiler)",
-    "/admin/graph": "queue item 4 (telemetry: the statsdb sampler)",
-    "/admin/hosts": "queue item 9 (the mesh: the shard map)",
-    "/admin/transport": "queue item 9 (the mesh: the transport plane)",
-    "/admin/perf": "queue item 9 (the mesh: the fleet view)",
+    "/crawlbot": "item 6 (the spider and crawlbot)",
+    "/admin/jit": "item 5 (telemetry: jitwatch)",
+    "/admin/hbm": "item 5 (telemetry: devwatch)",
+    "/admin/device": "item 5 (telemetry: devwatch)",
+    "/admin/profiler": "item 5 (telemetry: the sampling profiler)",
+    "/admin/graph": "item 5 (telemetry: the statsdb sampler)",
+    "/admin/transport": "item 4 (the cluster: the transport plane)",
+    "/admin/perf": "item 4 (the cluster: the fleet view)",
 }
 
 
@@ -350,17 +356,20 @@ class SearchHTTPServer:
     endpoints. ``device`` is where every collection scores (``None``
     means ``cuda``, which raises without a card; pass ``"cpu"`` to run
     on the CPU). ``colldb``: an already open registry over ``base_dir``
-    to serve (its collections keep their device)."""
+    to serve (its collections keep their device). ``sharded``: a
+    ShardedCollection to front instead of the flat collections."""
 
     BAN_COOLDOWN_S = 60.0
 
     def __init__(self, base_dir, host: str = "127.0.0.1", port: int = 8000,
                  sharded=None, cluster=None, conf: Conf | None = None,
                  device=None, colldb: CollectionDb | None = None):
-        if sharded is not None or cluster is not None:
+        if cluster is not None:
             raise NotImplementedError(
-                "sharded and cluster serving are not ported yet: ROADMAP "
-                "queue item 9 (the mesh)")
+                "cluster serving is not ported yet: ROADMAP item 4 (the "
+                "multi-process cluster)")
+        #: ShardedCollection | None (the in-process mesh)
+        self.sharded = sharded
         self.colldb = colldb if colldb is not None \
             else CollectionDb(base_dir, device=device)
         self.host = host
@@ -536,7 +545,7 @@ class SearchHTTPServer:
                     g_stats.count("autoban.rejected")
                     return _json(429, {"error": "query rate limit "
                                                 "(autoban)"})
-                if coll is None:
+                if coll is None and self.sharded is None:
                     return _json(404, {"error": "no such collection"})
                 # front-door classification: tier= param > propagated
                 # header > niceness bit > interactive
@@ -587,11 +596,19 @@ class SearchHTTPServer:
             return 200, self._page_admin_index(query), "text/html"
         if path == "/admin/stats":
             stats = dict(self.stats)
-            # runs quarantined as corrupt (on open or by a scrub)
-            q = {f"{cn}:{rn}": rdb.quarantined
-                 for cn in self.colldb.names()
-                 for rn, rdb in self.colldb.get(cn).rdbs().items()
-                 if rdb.quarantined}
+            # runs quarantined as corrupt (on open or by a scrub), per
+            # replica of the mesh
+            if self.sharded is not None:
+                q = {f"shard{s}_r{r}:{rn}": rdb.quarantined
+                     for s, row in enumerate(self.sharded.grid)
+                     for r, coll in enumerate(row)
+                     for rn, rdb in coll.rdbs().items()
+                     if rdb.quarantined}
+            else:
+                q = {f"{cn}:{rn}": rdb.quarantined
+                     for cn in self.colldb.names()
+                     for rn, rdb in self.colldb.get(cn).rdbs().items()
+                     if rdb.quarantined}
             if q:
                 stats["quarantined_runs"] = q
             return _json(200, stats)
@@ -607,6 +624,8 @@ class SearchHTTPServer:
             return self._page_admission(query)
         if path == "/admin/tenants":
             return self._page_tenants(query)
+        if path == "/admin/hosts":
+            return 200, self._page_hosts(), "application/json"
         return _json(404, {"error": "no such page"})
 
     def _coll(self, query: dict):
@@ -674,8 +693,10 @@ class SearchHTTPServer:
         self.stats["queries"] += 1
         cname = query.get("c", "main")
         rc_coll = self._coll_read(query)
-        ttl = float(rc_coll.conf.result_cache_ttl)
-        swr = float(rc_coll.conf.result_cache_swr)
+        conf = rc_coll.conf if rc_coll is not None \
+            else self.sharded.shards[0].conf
+        ttl = float(conf.result_cache_ttl)
+        swr = float(conf.result_cache_swr)
         ckey = gen = None
         # debug requests bypass the result cache both ways: a cached
         # body would echo a stale trace id
@@ -768,19 +789,25 @@ class SearchHTTPServer:
                     ttl_s=ttl, gen=gen, swr_s=swr)
                 if status in ("hit", "stale", "join"):
                     self._count_cache_hit(status)
-                if answered.get("generation", gen[1]) != gen[1]:
+                if answered.get("generation", gen[1]) != gen[1] \
+                        or answered.get("degraded"):
                     self._result_cache.invalidate(ckey)
                 return page
         page = self._render_search(query, q, n, s, fmt, rc_coll, debug, tr,
                                    answered=answered)
-        if ckey is not None and \
+        if ckey is not None and not answered.get("degraded") and \
                 answered.get("generation", gen[1]) == gen[1]:
             self._result_cache.put(ckey, page, ttl_s=ttl, gen=gen)
         return page
 
     def _result_gen(self, rc_coll) -> tuple:
         """The result cache's generation: the version a write to the
-        collection's posdb moves."""
+        collection's posdb moves; on the mesh, every twin's posdb
+        version."""
+        if self.sharded is not None:
+            return ("sharded",) + tuple(
+                coll.posdb.version
+                for row in self.sharded.grid for coll in row)
         return ("flat", rc_coll.posdb.version)
 
     def _render_search(self, query: dict, q: str, n: int, s: int,
@@ -788,8 +815,25 @@ class SearchHTTPServer:
                        answered: dict | None = None
                        ) -> tuple[int, str, str]:
         """One page; ``answered["generation"]`` receives the posdb
-        version the device route answered at."""
-        if self.conf.serve_device:
+        version the device route answered at, ``answered["degraded"]``
+        whether a whole shard was missing (such a page is not cached)."""
+        if self.sharded is not None:
+            if self.conf.serve_mesh:
+                # the mesh's resident loop serializes the device work;
+                # the core lock covers only the page build
+                res = engine.get_mesh_resident(self.sharded).serve(
+                    q, topk=n, offset=s, results_lock=self._lock)
+            else:
+                from ..parallel import sharded_search
+                with self._lock:
+                    res = sharded_search(self.sharded, q, topk=n,
+                                         offset=s)
+            if res.degraded:
+                if answered is not None:
+                    answered["degraded"] = True
+                self.stats["degraded"] = self.stats.get("degraded", 0) + 1
+                trace_mod.tag(results="degraded")
+        elif self.conf.serve_device:
             # the resident device route through the micro-batcher. No
             # host fallback: a failed batch answers 500 (serve.device_
             # error); overload and expiry take the serve edge's ladders
@@ -816,9 +860,12 @@ class SearchHTTPServer:
         """Cached page with optional highlight (PageGet.cpp)."""
         docid = int(query.get("d", "0"))
         self.stats["gets"] += 1
-        coll = self._coll_read(query)  # read path: never mint colls
-        rec = docproc.get_document(coll, docid=docid) \
-            if coll is not None else None
+        if self.sharded is not None:
+            rec = self.sharded.get_document(docid)
+        else:
+            coll = self._coll_read(query)  # read path: never mint colls
+            rec = docproc.get_document(coll, docid=docid) \
+                if coll is not None else None
         if rec is None:
             return _json(404, {"error": "not found"})
         content = rec.get("content", rec.get("text", ""))
@@ -837,7 +884,10 @@ class SearchHTTPServer:
         content = body.decode("utf-8", "replace") if body else \
             query.get("content", "")
         self.stats["injects"] += 1
-        ml = docproc.index_document(self._coll(query), url, content)
+        if self.sharded is not None:
+            ml = self.sharded.index_document(url, content)
+        else:
+            ml = docproc.index_document(self._coll(query), url, content)
         if ml is None:  # tagdb manualban (EDOCBANNED)
             return _json(403, {"error": "banned by tagdb"})
         return _json(200, {"docId": ml.docid,
@@ -850,7 +900,11 @@ class SearchHTTPServer:
         if not url:
             return _json(400, {"error": "missing u"})
         self.stats["deletes"] = self.stats.get("deletes", 0) + 1
-        if not docproc.remove_document(self._coll(query), url):
+        if self.sharded is not None:
+            ok = self.sharded.remove_document(url)
+        else:
+            ok = docproc.remove_document(self._coll(query), url)
+        if not ok:
             return _json(404, {"error": "not found"})
         return _json(200, {"deleted": url})
 
@@ -1236,13 +1290,30 @@ class SearchHTTPServer:
                 log.exception("slo evaluation failed")
                 g_stats.count("slo.eval_errors")
 
+    def _page_hosts(self) -> str:
+        """The shard map (``PageHosts.cpp``)."""
+        if self.sharded is None:
+            return json.dumps({"shards": 1, "mode": "single"})
+        hm = self.sharded.hostmap
+        return json.dumps({
+            "shards": hm.n_shards,
+            "replicas": hm.n_replicas,
+            "alive": hm.alive.tolist(),
+            "docsPerShard": [c.num_docs for c in self.sharded.shards],
+        })
+
     def stop(self) -> None:
         """Stop the batcher, park every resident tenant (their records
-        survive, so a restart cold-starts cleanly) and close the
-        socket."""
+        survive, so a restart cold-starts cleanly), stop the mesh's
+        serving loop and close the socket."""
         self._stop_ticks.set()
         self._batcher.stop()
         g_residency.stop_all()
+        if self.sharded is not None:
+            # respawned at the next mesh search
+            mr = getattr(self.sharded, "_mesh_resident", None)
+            if mr is not None:
+                mr.stop()
         if self._httpd:
             self._httpd.shutdown()
             self._httpd.server_close()

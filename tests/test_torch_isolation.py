@@ -89,6 +89,16 @@ proc = Process()
 proc.register(e)
 proc.save_all()
 assert rebalance.repair(e) == 1 and dailymerge.parse_window("2-5")
+from open_source_search_engine_tpu_torch.parallel import (
+    MeshResident, ShardedCollection, make_mesh, sharded_search)
+sc = ShardedCollection("mesh", tempfile.mkdtemp(), n_shards=2, device="cpu")
+for i in range(6):
+    sc.index_document(f"http://m{{i}}.test/p", f"<p>mesh words {{i}}</p>")
+res = sharded_search(sc, "mesh words", mesh=make_mesh(2, ["cpu"]), topk=5)
+assert res.total_matches == 6 and len(res.results) == 5, res
+mr = MeshResident(sc, devices=["cpu"])
+assert mr.serve("mesh words", topk=5).total_matches == 6
+mr.stop()
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.")
        or m == "open_source_search_engine_tpu"

@@ -102,8 +102,7 @@ def _pair(base: Path, name: str, docs, dump: bool = False):
 
 
 def _stop(*servers):
-    for s in servers:
-        s.stop()
+    jax_gc.release(*servers)
     g_residency.reset()
     jresidency.reset()
 
@@ -393,9 +392,17 @@ class TestEdge:
             before + 1
         assert srv.stats["errors"] == 1
 
-    @pytest.mark.parametrize("path", sorted(NOT_PORTED))
+    @pytest.mark.parametrize("path", sorted(set(NOT_PORTED)
+                                            | {"/admin/hosts"}))
     def test_left_out_endpoints_answer_501(self, servers, path):
         code, body, _ = _get(servers[1], path)
+        if path not in NOT_PORTED:
+            # ported since (/admin/hosts, with the mesh): the
+            # reference's answer
+            jcode, jbody, _ = _get(servers[0], path)
+            assert (code, json.loads(body)) == (jcode, json.loads(jbody))
+            assert code == 200
+            return
         assert code == 501 and "ROADMAP" in json.loads(body)["error"]
 
     @pytest.mark.parametrize("path", [
