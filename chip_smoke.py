@@ -149,6 +149,30 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``serve_mesh`` on and off, 4 clients x 4 queries, every page equal to
    the in-process page, ``/admin/hosts`` reporting 4 shards and their
    doc counts, no device error;
+
+   (5i) the cluster on the card (``cluster_fleet``, after (5h)): (5h)'s
+   saved 4-shard grid, copied, served by four node processes of the
+   ``node`` verb on the device route (``FleetManager``), each its own
+   CUDA context on the one card. Before the spawn, each shard directory's
+   legs and their merge are computed in this process and its bases
+   released. Each node's spawn-to-ready seconds, doc count and card
+   memory (``nvidia-smi --query-compute-apps``); the queries through
+   ``ClusterClient.search_batch`` cold and warm (site clustering off):
+   each node's legs bitwise equal to the in-process device route over
+   its shard, every merged page equal to the in-process merge, every
+   total equal to the flat device route's; each node's K1 and K2
+   launches over ``/rpc/stats`` (> 0 in sum; 0 plain calls, 0 device
+   errors); 4 clients x 16 through ``ClusterClient.search`` (qps, p50,
+   max); the ``proxy`` path (``SearchHTTPServer(cluster=...)``) serving 4
+   HTTP clients x 16, every page equal to the client's, with
+   ``/admin/hosts`` (4 live shards), ``/admin/transport`` (each node's
+   new connections bounded by the client's in-flight bound, most RPCs on
+   a reused connection) and ``/admin/perf`` (every node's ``node.search``
+   merged); 8 POST /inject through the proxy, each on its owning shard
+   and found; a SIGKILL of one node, a degraded answer while it is down,
+   its respawn by the supervisor with its journal replayed, the 8 pages
+   found and the queries answered as before the kill; a teardown that
+   leaves no process;
 6. run the golden QA suite (``tests/golden``) on the card through the
    flat path and through ``search_device``, against
    ``tests/golden/expected.json``;
@@ -430,6 +454,21 @@ def http_get(base: str, path: str, params: dict):
     url = f"{base}{path}?{urllib.parse.urlencode(params)}"
     try:
         with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def http_post(base: str, path: str, params: dict, body: str):
+    """(status, body) of one POST; an HTTP error status is returned."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+    req = urllib.request.Request(
+        f"{base}{path}?{urllib.parse.urlencode(params)}",
+        data=body.encode(), method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
             return r.status, r.read().decode()
     except urllib.error.HTTPError as e:
         return e.code, e.read().decode()
@@ -1235,9 +1274,367 @@ def mesh(colldb, coll, queries, work, reset_counts, card):
         mr.stop()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[mesh] phase (5h) in {out['phase_s']:.1f} s")
+    # (5i) holds the cluster's totals against the flat route's on this
+    # same corpus
+    out["flat_totals"] = {q: r.total_matches for q, r in flat.items()}
     sc._mesh_resident = None
     del mr, sc
     torch.cuda.empty_cache()
+    return out
+
+
+def cluster_fleet(grid, name, queries, flat_totals, work, card, device):
+    """(5i) the cluster on the card: (5h)'s saved 4-shard grid, copied so
+    that the nodes write into the copy, served by four node processes
+    (``FleetManager``, the device route on ``device``). Before the spawn
+    each shard directory is opened in this process and its legs (the
+    batched ``search_device_batch`` at the client's leg depth) and the
+    merged pages (``cluster.merge_legs``) are computed, and the card is
+    freed again. Then: each node's spawn-to-ready seconds, doc count and
+    card memory; the queries through ``ClusterClient.search_batch`` (site
+    clustering off) cold and warm; each node's legs bitwise equal to the
+    in-process ones, every merged page equal to the in-process merge,
+    every total equal to the flat device route's; each node's K1 and K2
+    launches (> 0 in sum), plain calls and device errors (0) over
+    ``/rpc/stats``; 4 clients x 16 queries through ``ClusterClient.search``
+    (its caches off); ``SearchHTTPServer(cluster=...)`` (the ``proxy``)
+    serving 4 HTTP clients x 16 queries, every page equal to the client's,
+    with ``/admin/hosts``, ``/admin/transport`` (pooled reuse) and
+    ``/admin/perf`` (every node's ``node.search`` merged); 8 POST /inject
+    through the proxy, each on its owning shard and found; a SIGKILL of
+    one node (a query meanwhile answers ``degraded``), its respawn by the
+    supervisor, its journal replay, and its answers as before the kill;
+    then a teardown that leaves no process. Every wait has a deadline,
+    and any failure shuts the fleet down. Returns the phase's numbers."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+    from open_source_search_engine_tpu_torch.build import docproc
+    from open_source_search_engine_tpu_torch.corpus import assert_pages_match
+    from open_source_search_engine_tpu_torch.index.collection import \
+        Collection
+    from open_source_search_engine_tpu_torch.parallel.cluster import (
+        ClusterClient, leg_of, leg_topk, merge_legs)
+    from open_source_search_engine_tpu_torch.parallel.fleet import \
+        FleetManager
+    from open_source_search_engine_tpu_torch.parallel.hostmap import HostMap
+    from open_source_search_engine_tpu_torch.query import engine
+    from open_source_search_engine_tpu_torch.serve.server import (
+        SearchHTTPServer, render_results)
+    from open_source_search_engine_tpu_torch.utils.stats import g_stats
+
+    t_phase = time.perf_counter()
+    n_shards = 4
+    on_card = torch.device(device).type == "cuda"
+    SC = dict(topk=10, site_cluster=False)
+    out = {"card": card}
+    hm = HostMap(n_shards)
+
+    def page(res):
+        return render_results(res, "json")[0]
+
+    def deadline_wait(cond, secs, what):
+        end = time.monotonic() + secs
+        while True:
+            v = cond()
+            if v:
+                return v
+            assert time.monotonic() < end, f"timed out: {what}"
+            time.sleep(0.05)
+
+    # the fleet's directory: each shard's collection under the name a
+    # node opens ("shard"), copied from the grid
+    base = work / "fleet"
+    for s in range(n_shards):
+        shutil.copytree(grid / f"shard_{s:03d}" / "coll" / name,
+                        base / f"shard_{s:03d}" / "coll" / "shard")
+
+    # the in-process reference: each shard's legs and the merged pages,
+    # computed before the spawn and released before it
+    over = leg_topk(10)
+    colls, legs, docs = [], [], []
+    t0 = time.perf_counter()
+    for s in range(n_shards):
+        c = Collection("shard", base / f"shard_{s:03d}", device=device)
+        c.conf.pqr_enabled = False   # as a node sets it
+        legs.append([leg_of(r) for r in engine.search_device_batch(
+            c, queries, topk=over, with_snippets=False, site_cluster=False)])
+        engine.drop_device_index(c)
+        colls.append(c)
+        docs.append(c.num_docs)
+    ref_pages = [merge_legs(
+        q, [legs[s][i] for s in range(n_shards)],
+        lambda d: docproc.get_document(
+            colls[int(hm.shard_of_docid(d))], docid=int(d)), **SC)
+        for i, q in enumerate(queries)]
+    out["inprocess_s"] = time.perf_counter() - t0
+    del colls
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"[cluster] in-process legs of {len(queries)} queries at depth "
+        f"{over} on each of the {n_shards} shard directories ({docs} docs),"
+        f" and their merge, in {out['inprocess_s']:.1f} s; this process's "
+        "bases released")
+
+    fm = FleetManager(base, n_shards=n_shards, n_replicas=1, device=device,
+                      use_device=True, supervise=True)
+    srv = None
+    clients: list = []
+    try:
+        t0 = time.perf_counter()
+        fm.start_all()
+        out["start_all_s"] = time.perf_counter() - t0
+        pings = [fm.wait_ready(s, 0) for s in range(n_shards)]
+        out["spawn_to_ready_s"] = [fm.ready_s[(s, 0)]
+                                   for s in range(n_shards)]
+        assert [p["docs"] for p in pings] == docs, (pings, docs)
+        log(f"[cluster] {n_shards} node processes (device route, "
+            f"--torch-device {device}) ready in {out['start_all_s']:.2f} s; "
+            f"spawn to ready per node {[round(x, 2) for x in out['spawn_to_ready_s']]}"
+            f" s; docs per node {[p['docs'] for p in pings]}; pids "
+            f"{[p['pid'] for p in pings]}")
+
+        # -- the queries, cold then warm, through the client --
+        client = ClusterClient(fm.conf)
+        clients.append(client)
+        t0 = time.perf_counter()
+        cold = client.search_batch(queries, **SC)
+        out["cold_batch_s"] = time.perf_counter() - t0
+        # the nodes' legs, while their result caches hold what they
+        # answered the cold batch with
+        node_legs = [fm.transport.request(
+            fm.addr(s, 0), "/rpc/search",
+            {"queries": queries, "topk": over, "lang": 0},
+            timeout=120.0)["results"] for s in range(n_shards)]
+        t0 = time.perf_counter()
+        warm = client.search_batch(queries, **SC)
+        out["warm_batch_s"] = time.perf_counter() - t0
+        for s in range(n_shards):
+            for q, a, b in zip(queries, node_legs[s], legs[s]):
+                assert a["total"] == b["total"], (s, q)
+                assert np.array_equal(a["docids"], b["docids"]), (s, q)
+                assert np.array_equal(np.asarray(a["scores"]).view(np.int64),
+                                      b["scores"].view(np.int64)), (s, q)
+        for q, a, b, r in zip(queries, cold, warm, ref_pages):
+            assert not a.degraded and a.total_matches == flat_totals[q], \
+                (q, a.total_matches, flat_totals[q])
+            assert page(a) == page(r) == page(b), q
+        out["qps_cold"] = len(queries) / out["cold_batch_s"]
+        out["qps_warm"] = len(queries) / out["warm_batch_s"]
+        log(f"[cluster] search_batch of {len(queries)}: cold "
+            f"{out['cold_batch_s'] * 1e3:.1f} ms ({out['qps_cold']:.2f} qps,"
+            f" the nodes' bases built at their first wave), warm "
+            f"{out['warm_batch_s'] * 1e3:.1f} ms ({out['qps_warm']:.2f} qps, "
+            "the client's result cache); every node's legs bitwise equal "
+            "to the in-process device route over its shard directory, "
+            "every merged page equal to the in-process merge of those legs, "
+            "every total equal to the flat device route's")
+
+        # -- the nodes' counters and card memory --
+        def node_stats():
+            return [fm.transport.request(fm.addr(s, 0), "/rpc/stats", {},
+                                         timeout=30.0)["stats"]
+                    for s in range(n_shards)]
+        st = node_stats()
+        ctr = [w["counters"] for w in st]
+        k1 = [c.get("kernel.min_scores.launches", 0) for c in ctr]
+        k2 = [c.get("kernel.fd_scores.launches", 0) for c in ctr]
+        plain = [c.get("kernel.min_scores.plain_calls", 0)
+                 + c.get("kernel.fd_scores.plain_calls", 0) for c in ctr]
+        errs = [c.get("node.device_error", 0) for c in ctr]
+        assert sum(errs) == 0, errs
+        if on_card:
+            assert sum(k1) > 0 and sum(k2) > 0, (k1, k2)
+            assert sum(plain) == 0, plain
+        else:  # a rehearsal on the CPU runs the plain versions
+            assert sum(plain) > 0, plain
+        out.update(k1_launches=k1, k2_launches=k2)
+        # each node's allocator on the card (reserved, allocated GiB; its
+        # CUDA context is not in them), and the whole card's used memory
+        # as nvidia-smi reads it (every process, contexts included)
+        mem = {}
+        if on_card:
+            mem = {f"s{s}": [round(w["gauges"][f"node.device_{k}_bytes"]
+                                   / 2**30, 3)
+                             for k in ("reserved", "allocated")]
+                   for s, w in enumerate(st)}
+            mem["card_used"] = subprocess.run(
+                ["nvidia-smi", "--query-gpu=memory.used,memory.total",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True).stdout.strip()
+            # the per-process view (empty where nvidia-smi cannot see
+            # the processes, as in a container)
+            mem["compute_apps"] = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                 "--format=csv,noheader"], capture_output=True,
+                text=True).stdout.strip()
+        out["card_memory"] = mem
+        log(f"[cluster] node counters (/rpc/stats): K1 launches {k1}, K2 "
+            f"launches {k2}, plain calls {plain}, device errors {errs}; "
+            f"card memory per node [reserved, allocated] GiB and the "
+            f"card's used / total {mem or 'not measured (no card)'}")
+
+        # -- 4 clients x 16 through ClusterClient.search --
+        lc = ClusterClient(fm.conf, use_cache=False)
+        clients.append(lc)
+        want = {q: page(r) for q, r in zip(queries, cold)}
+        lat, errors = [], []
+        start = threading.Barrier(4)
+
+        def one_client(c):
+            try:
+                start.wait(timeout=60)
+                for q in queries[c::4]:
+                    t1 = time.perf_counter()
+                    res = lc.search(q, **SC)
+                    lat.append((time.perf_counter() - t1) * 1e3)
+                    assert_pages_match(page(res), want[q], ("client", q))
+            except BaseException as exc:  # noqa: BLE001 — reported below
+                errors.append((c, repr(exc)))
+
+        t0 = time.perf_counter()
+        ths = [threading.Thread(target=one_client, args=(c,), daemon=True)
+               for c in range(4)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        assert not any(t.is_alive() for t in ths), "a client hung"
+        assert not errors, errors
+        out["clients"] = dict(qps=len(queries) / wall,
+                              p50_ms=statistics.median(lat), max_ms=max(lat))
+        log(f"[cluster] 4 clients x {len(queries) // 4} through "
+            f"ClusterClient.search (client caches off): {wall * 1e3:.1f} ms, "
+            f"{out['clients']['qps']:.2f} qps, p50 "
+            f"{out['clients']['p50_ms']:.2f} ms, max "
+            f"{out['clients']['max_ms']:.2f} ms; every page equal to the "
+            "cold batch's")
+
+        # -- the proxy: SearchHTTPServer(cluster=...) --
+        pc = ClusterClient(fm.conf)
+        clients.append(pc)
+        srv = SearchHTTPServer(work / "proxy", port=0, device=device,
+                               cluster=pc)
+        pconf = srv.colldb.get("main").conf
+        pconf.result_cache_ttl = 0
+        srv.start()
+        url = f"http://127.0.0.1:{srv.port}"
+        ref = {q: page(lc.search(q, topk=10, conf=pconf)) for q in queries}
+        acc0 = [fm.transport.request(fm.addr(s, 0), "/rpc/ping", {},
+                                     timeout=10.0)["accepts"]
+                for s in range(n_shards)]
+        g_stats.reset()
+        wall, hl, pages = http_clients(url, queries, 4, "main")
+        for q in queries:
+            assert_pages_match(pages[q], ref[q], ("proxy", q))
+        acc1 = [fm.transport.request(fm.addr(s, 0), "/rpc/ping", {},
+                                     timeout=10.0)["accepts"]
+                for s in range(n_shards)]
+        code, body = http_get(url, "/admin/hosts", {})
+        hosts = json.loads(body)
+        assert code == 200 and hosts["shards"] == n_shards and \
+            hosts["alive"] == [[True]] * n_shards, body
+        code, body = http_get(url, "/admin/transport", {})
+        tp = json.loads(body)
+        tc = tp["counters"]
+        dials = [b - a for a, b in zip(acc0, acc1)]
+        rpcs = tc.get("transport.rpc", 0)
+        reuse = tc.get("transport.conn_reuse", 0)
+        # a node's new connections are bounded by what the proxy's client
+        # can have in flight at once, not by the RPCs it sent
+        bound = pc.max_inflight
+        assert code == 200 and max(dials) <= bound < rpcs, (dials, bound,
+                                                            rpcs)
+        assert reuse > rpcs / 2, tc
+        code, body = http_get(url, "/admin/perf", {"format": "json"})
+        perf = json.loads(body)
+        ns = perf["fleet"]["latencies"]["node.search"]
+        per_host = [h["node.search"]["count"]
+                    for h in perf["hosts"].values() if h is not None]
+        assert code == 200 and len(per_host) == n_shards and \
+            ns["count"] == sum(per_host), (ns, per_host)
+        out["proxy"] = dict(qps=len(queries) / wall,
+                            p50_ms=statistics.median(hl), max_ms=max(hl),
+                            node_dials=dials, rpcs=rpcs, conn_reuse=reuse,
+                            conn_dial=tc.get("transport.conn_dial", 0),
+                            node_search_p50_ms=ns["p50_ms"],
+                            node_search_count=ns["count"])
+        log(f"[cluster] proxy (SearchHTTPServer(cluster=...)), 4 HTTP "
+            f"clients x {len(queries) // 4}: {wall * 1e3:.1f} ms, "
+            f"{out['proxy']['qps']:.2f} qps, p50 "
+            f"{out['proxy']['p50_ms']:.2f} ms, max {out['proxy']['max_ms']:.2f}"
+            f" ms; every page equal to the client's; /admin/hosts {hosts}; "
+            f"/admin/transport: {rpcs} RPCs, {reuse} on a reused connection, "
+            f"{out['proxy']['conn_dial']} dials, new connections per node "
+            f"{dials} (bound {bound}); /admin/perf: node.search merged over "
+            f"{len(per_host)} nodes, {ns['count']} calls, p50 "
+            f"{ns['p50_ms']:.2f} ms")
+
+        # -- write, kill, recover --
+        word = "zqxclusterinject"
+        injected = []
+        for i in range(8):
+            u = f"http://inject{i}.cluster.example.com/p"
+            status, body = http_post(url, "/inject", {"u": u},
+                                     f"<html><title>inject {i}</title><body>"
+                                     f"<p>{word} page {i}</p></body></html>")
+            assert status == 200, (status, body)
+            injected.append(json.loads(body)["docId"])
+        owners = [int(hm.shard_of_docid(d)) for d in injected]
+        after = [fm.transport.request(fm.addr(s, 0), "/rpc/ping", {},
+                                      timeout=10.0)["docs"]
+                 for s in range(n_shards)]
+        assert [a - b for a, b in zip(after, docs)] == \
+            [owners.count(s) for s in range(n_shards)], (after, owners)
+        found = lc.search(word, topk=10, site_cluster=False)
+        assert found.total_matches == 8 and not found.degraded
+        assert sorted(r.docid for r in found.results) == sorted(injected)
+        before = lc.search_batch(queries, **SC)
+        victim = owners[0]
+        deg0 = g_stats.counters.get("results.degraded", 0)
+        t_kill = time.monotonic()
+        fm.kill(victim, 0)
+        deadline_wait(lambda: not fm.alive(victim, 0), 30, "the kill")
+        down = lc.search(word, topk=10, site_cluster=False)
+        assert down.degraded and down.total_matches == 8 - owners.count(
+            victim), (down.degraded, down.total_matches)
+        assert g_stats.counters.get("results.degraded", 0) > deg0
+        back = deadline_wait(
+            lambda: (lambda r: r if not r.degraded else None)(
+                lc.search(word, topk=10, site_cluster=False)),
+            240, "the respawned node's first answer")
+        out["kill_to_first_answer_s"] = time.monotonic() - t_kill
+        fm.wait_ready(victim, 0)
+        out["respawn_to_ready_s"] = fm.ready_s[(victim, 0)]
+        assert back.total_matches == 8
+        assert sorted(r.docid for r in back.results) == sorted(injected)
+        again = lc.search_batch(queries, **SC)
+        for q, a, b in zip(queries, again, before):
+            assert not a.degraded
+            assert_pages_match(page(a), page(b), ("respawned", q))
+        log(f"[cluster] 8 POST /inject through the proxy landed on their "
+            f"owning shards {owners} and were found; node s{victim} killed "
+            f"(SIGKILL): a query meanwhile answered degraded "
+            f"({down.total_matches} of 8 found, results.degraded counted); "
+            f"the supervisor respawned it, spawn to ready "
+            f"{out['respawn_to_ready_s']:.2f} s, kill to its first answer "
+            f"{out['kill_to_first_answer_s']:.2f} s; its journal replay kept "
+            f"the 8 pages, and the {len(queries)} queries answer as before "
+            "the kill")
+    finally:
+        if srv is not None:
+            srv.stop()
+        for c in clients:
+            c.close()
+        fm.shutdown()
+    assert fm.surviving_pids() == [], fm.surviving_pids()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[cluster] fleet down, no surviving process; phase (5i) in "
+        f"{out['phase_s']:.1f} s ({card})")
     return out
 
 
@@ -2364,6 +2761,9 @@ def main() -> int:
     g_residency.reset()
     coll._device_index = None
 
+    clustered = cluster_fleet(work / "grid4", coll.name, queries,
+                              meshed.pop("flat_totals"), work, smi, "cuda")
+
     durable = durability(colldb, coll.name, queries, work, reset_counts,
                          "cuda")
     del coll
@@ -2424,6 +2824,7 @@ def main() -> int:
             "http_mesh": meshed["http_mesh"]["k1_launches"],
             "http_sharded_search":
                 meshed["http_sharded_search"]["k1_launches"]},
+        "launches_cluster_nodes": clustered["k1_launches"],
         "mesh_stacked_cube": meshed["k1_stacked"],
         "max_abs_err": max(max_err, meshed["k1_stacked"]["max_abs_err"]),
         "ms": k1d_ms, "parent_ms": k1d_par, "plain_ms": k1d_plain_ms,
@@ -2458,6 +2859,7 @@ def main() -> int:
             "clients_across_merge": durable["merge_launches"][1]},
         "launches_mesh": {
             "host_merge": meshed["host_merge"]["k2_launches"]},
+        "launches_cluster_nodes": clustered["k2_launches"],
         "mesh_shard_wave": meshed["k2_shard_wave"],
         "launches_tail_notail": list(k2_split),
         "max_abs_err": max(k2_err, meshed["k2_shard_wave"]["max_abs_err"]), "ms": k2_ms, "parent_ms": k2_par,
@@ -2486,7 +2888,7 @@ def main() -> int:
         "device_build_spans_s": build_spans, "resident": resident,
         "served": served, "numeric": numeric, "route_corpus": route,
         "cold_start_s": t_cold, "cache_read_s": t_cached,
-        "durability": durable, "mesh": meshed,
+        "durability": durable, "mesh": meshed, "cluster": clustered,
         "index_docs_s": coll_rate}}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

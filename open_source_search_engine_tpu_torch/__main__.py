@@ -7,6 +7,9 @@
     python -m open_source_search_engine_tpu_torch repair --dir ./data
     python -m open_source_search_engine_tpu_torch rebalance --dir ./grid \
         --out ./grid4 --old-shards 1 --new-shards 4
+    python -m open_source_search_engine_tpu_torch node --dir ./grid4/shard_000 \
+        --port 9000 --hosts hosts.conf --shard 0 --device
+    python -m open_source_search_engine_tpu_torch proxy --hosts hosts.conf
 
 Each takes ``--torch-device {cuda,cpu}`` (default ``cuda``): the device
 queries score on. ``serve`` runs the node's HTTP server with the autosave
@@ -20,6 +23,14 @@ when a tagdb ``manualban`` drops the page. ``save`` checkpoints every
 collection of the directory; ``repair`` rebuilds a collection's posdb,
 clusterdb and linkdb from its titledb. ``rebalance`` (``gb scale``)
 re-shards a grid of ``shard_XXX`` directories into a new one, saved.
+
+``node`` runs one shard replica of a cluster (``parallel.cluster``'s
+``ShardNodeServer``, its collection ``shard`` under ``--dir``) until
+SIGINT or SIGTERM, then saves; ``--device`` serves it through the device
+route, and ``--torch-device`` says where that runs. ``proxy`` is the
+stateless front end over a cluster (``--hosts``, a hosts.conf file):
+``/search`` fans out to the nodes and merges; ``serve --hosts`` does the
+same beside a local collection directory.
 """
 
 from __future__ import annotations
@@ -46,8 +57,12 @@ def cmd_serve(args) -> int:
     from .control.process import Process
     from .serve.server import SearchHTTPServer
 
+    cluster = None
+    if args.hosts:
+        from .parallel.cluster import ClusterClient, HostsConf
+        cluster = ClusterClient(HostsConf.load(args.hosts))
     srv = SearchHTTPServer(args.dir, host=args.host, port=args.port,
-                           device=args.torch_device)
+                           device=args.torch_device, cluster=cluster)
     srv.colldb.get(args.coll)   # open (or create) the default collection
     proc = Process(autosave_minutes=args.autosave)
     proc.register(srv.colldb)
@@ -67,8 +82,76 @@ def cmd_serve(args) -> int:
         time.sleep(0.2)
     srv.stop()         # no request writes while the collections save
     proc.shutdown()
+    if cluster is not None:
+        cluster.close()
     print(json.dumps({"stopped": True, "saved": sorted(srv.colldb.colls)}),
           flush=True)
+    return 0
+
+
+def cmd_proxy(args) -> int:
+    """The query-routing front proxy (``gb proxy``, ``Proxy.cpp``): no
+    local index; ``/search`` fans out to the cluster's nodes and serves
+    the merged page."""
+    import tempfile
+    import time
+
+    from .control.process import Process
+    from .parallel.cluster import ClusterClient, HostsConf
+    from .serve.server import SearchHTTPServer
+
+    cluster = ClusterClient(HostsConf.load(args.hosts))
+    srv = SearchHTTPServer(tempfile.mkdtemp(prefix="osse_proxy_"),
+                           host=args.host, port=args.port,
+                           device=args.torch_device, cluster=cluster)
+    proc = Process(autosave_minutes=0)
+    proc.install_signal_handlers()
+    srv.start()
+    print(json.dumps({"proxy": f"http://{args.host}:{srv.port}/",
+                      "hosts": args.hosts}), flush=True)
+    while not proc.stopping:
+        time.sleep(0.2)
+    srv.stop()
+    cluster.close()
+    return 0
+
+
+def cmd_node(args) -> int:
+    """One shard-replica node process (the reference's per-host gb
+    instance). A fleet spawns it once per (shard, replica) with the
+    cluster map (``--hosts``), the node's seat in it and the chaos seed in
+    ``OSSE_CHAOS``; SIGTERM or SIGINT saves and stops it."""
+    import os
+    import signal
+    import time
+
+    from .parallel.cluster import HostsConf, ShardNodeServer
+    from .utils import chaos as chaos_mod
+
+    chaos_mod.maybe_enable()
+    cluster_map = HostsConf.load(args.hosts) if args.hosts else None
+    node = ShardNodeServer(args.dir, host=args.host, port=args.port,
+                           use_device=args.device, shard=args.shard,
+                           replica=args.replica, cluster_map=cluster_map,
+                           device=args.torch_device)
+    stop = [False]
+
+    def handler(signum, frame):
+        stop[0] = True  # the save runs below, under the writer lock
+
+    signal.signal(signal.SIGTERM, handler)
+    signal.signal(signal.SIGINT, handler)
+    node.start()
+    print(json.dumps({"node": f"{args.host}:{node.port}",
+                      "docs": node.coll.num_docs,
+                      "shard": args.shard, "replica": args.replica,
+                      "device": args.torch_device, "route":
+                      "device" if args.device else "flat",
+                      "pid": os.getpid()}), flush=True)
+    while not stop[0]:
+        time.sleep(0.3)
+    node.save()
+    node.stop()
     return 0
 
 
@@ -162,7 +245,36 @@ def main(argv: list[str] | None = None) -> int:
                    help="listen port (default 8000; 0 = any free port)")
     p.add_argument("--autosave", type=float, default=5.0,
                    help="autosave interval in minutes (default 5)")
+    p.add_argument("--hosts", help="hosts.conf: front a node cluster "
+                   "instead of the local collections")
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("node", help="run one shard-replica node (cluster)")
+    p.add_argument("--dir", default="./osse_shard",
+                   help="the node's data directory (default ./osse_shard)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=0,
+                   help="listen port (default 0 = any free port)")
+    p.add_argument("--device", action="store_true",
+                   help="serve queries through the device route")
+    p.add_argument("--torch-device", choices=("cuda", "cpu"),
+                   default="cuda", help="scoring device (default cuda)")
+    p.add_argument("--hosts", help="the hosts.conf cluster map")
+    p.add_argument("--shard", type=int, default=0,
+                   help="this node's shard in the map")
+    p.add_argument("--replica", type=int, default=0,
+                   help="this node's twin within the shard")
+    p.set_defaults(fn=cmd_node)
+
+    p = sub.add_parser("proxy", help="query-routing front proxy: /search "
+                       "fans out to the cluster, no local index")
+    p.add_argument("--hosts", required=True, help="the hosts.conf map")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--torch-device", choices=("cuda", "cpu"),
+                   default="cuda", help="device of the proxy's (empty) "
+                   "local collections (default cuda)")
+    p.set_defaults(fn=cmd_proxy)
 
     p = sub.add_parser("inject", help="index one document")
     _add_common(p)

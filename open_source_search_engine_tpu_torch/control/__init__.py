@@ -1,11 +1,10 @@
 """Control plane: the process lifecycle (autosave, orderly save and
-shutdown), the daily merge and the repair rebuild.
+shutdown), shard liveness (``Heartbeat``), the daily merge, the repair
+rebuild and ``rebalance``.
 
-Port of ``open_source_search_engine_tpu/control/`` without the cluster's
-liveness prober (``Heartbeat``, ``make_rpc_probe``) and ``rebalance``,
-which come with the multi-process cluster.
+Port of ``open_source_search_engine_tpu/control/``.
 """
 
-from .process import Process
+from .process import Heartbeat, Process
 
-__all__ = ["Process"]
+__all__ = ["Heartbeat", "Process"]

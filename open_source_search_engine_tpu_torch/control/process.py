@@ -86,3 +86,61 @@ class Process:
 
         signal.signal(signal.SIGTERM, handler)
         signal.signal(signal.SIGINT, handler)
+
+
+def make_rpc_probe(conf, transport=None, timeout_s: float = 1.5):
+    """A :class:`Heartbeat` probe that pings real node processes:
+    ``probe(shard) -> bool`` hits ``/rpc/ping`` on each of the shard's
+    twins over the pooled transport and reports the shard alive when any
+    twin answers (the cross-process PingServer, for a fleet spawned by
+    ``parallel.fleet.FleetManager`` from the same hosts.conf map)."""
+    def probe(shard: int) -> bool:
+        # imported at call time: control/ does not pull the transport
+        # stack in at import
+        from ..parallel import transport as transport_mod
+
+        t = transport or transport_mod.g_transport
+        return any(t.probe(addr, timeout=timeout_s) is not None
+                   for addr in conf.addresses[shard])
+
+    return probe
+
+
+class Heartbeat:
+    """Shard liveness prober (PingServer: ``sendPingsToAll``
+    ``PingServer.h:61``, and the dead marking Multicast fails over on).
+
+    The probe is pluggable: a fleet hands ``probe(shard_id) -> bool`` a
+    real RPC ping (:func:`make_rpc_probe` over a hosts.conf map); tests
+    flip it to simulate failures. Dead shards are skipped by the query
+    path (degraded serving) until they pass a probe again."""
+
+    def __init__(self, hostmap, probe=None, interval_s: float = 2.0):
+        self.hostmap = hostmap
+        self.probe = probe or (lambda shard: True)
+        self.interval_s = interval_s
+        self._stop = threading.Event()
+        self._thread: threading.Thread | None = None
+
+    def check_once(self) -> None:
+        for s in range(self.hostmap.n_shards):
+            try:
+                alive = bool(self.probe(s))
+            except Exception:  # noqa: BLE001 — a failed probe = dead
+                alive = False
+            if alive:
+                self.hostmap.mark_alive(s)
+            else:
+                if self.hostmap.alive[s].any():
+                    log.warning("shard %d marked dead", s)
+                self.hostmap.mark_dead(s)
+
+    def start(self) -> None:
+        def loop():
+            while not self._stop.wait(self.interval_s):
+                self.check_once()
+
+        self._thread = threads.spawn("heartbeat", loop)
+
+    def stop(self) -> None:
+        self._stop.set()

@@ -84,6 +84,7 @@ from ..index.collection import Collection
 from ..index.rdblite import merge_batches
 from ..utils import trace
 from ..utils.log import get_logger
+from ..utils.stats import g_stats
 from . import devcheck, fd_scores_kernel, weights
 from .compiler import SUB_SYNONYM, QueryPlan, compile_query
 from .min_scores_kernel import BIG, MAX_PAIR_SPAN
@@ -553,6 +554,10 @@ class DeviceIndex:
         return True
 
     def _postings_overflow(self) -> ValueError:
+        """The 2^31-postings runstart pack limit, counted
+        (``build.postings_overflow``: ``/admin/perf``'s shard-split alert)
+        before the raise."""
+        g_stats.count("build.postings_overflow")
         return ValueError(
             f"shard exceeds {_MAX_POSTINGS} stored postings (runstart "
             "pack limit) — split the collection across more shards")

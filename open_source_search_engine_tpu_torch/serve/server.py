@@ -33,6 +33,18 @@ when the ``serve_mesh`` parm is on, else through ``sharded_search``
 under the core lock; ``/get``, ``/inject`` and ``/delete`` route to the
 owning shards, and ``/admin/hosts`` shows the shard map.
 
+With ``cluster=`` (a :class:`~..parallel.cluster.ClusterClient`, the
+``proxy`` verb) the server fronts node processes: ``/search`` is the
+client's scatter-gather and Msg3a merge over RPC, ``/get``, ``/inject``
+and ``/delete`` go to the owning shard's twins, the result cache's
+generation is the cluster's shard-generation vector, and ``/admin/perf``,
+``/metrics`` and the SLO tick read the fleet view (every node's
+``/rpc/stats`` merged bucket-wise). ``/admin/transport`` shows the
+transport's pools, RTT EWMAs and counters with the cluster's twin
+preferences, and ``/admin/hosts`` the cluster's shards with a fresh ping
+of each node (the reference answers ``{"shards": 1, "mode": "single"}``
+for a cluster).
+
 Departures from the reference:
 
 * **No host fallback.** The reference answers a failed device batch
@@ -51,11 +63,10 @@ Departures from the reference:
   it** (:data:`NOT_PORTED`): ``/crawlbot`` and the spider, the
   telemetry pages (``/admin/jit``, ``/admin/hbm``, ``/admin/device``,
   ``/admin/profiler``, ``/admin/graph``) with the statsdb sample ring
-  (its SLO evaluation is kept, as the server's SLO tick), and
-  the fleet pages (``/admin/transport``, ``/admin/perf``). The
-  ``cluster=`` argument raises NotImplementedError (the multi-process
-  cluster), and ``/metrics`` has no devwatch, jitwatch or transport
-  families.
+  (its SLO evaluation is kept, as the server's SLO tick, and the perf
+  page's sparklines with it). ``/metrics`` and ``/admin/perf`` have no
+  devwatch or jitwatch families (``/admin/perf``'s ``hbm`` row reports
+  devwatch off).
 """
 
 from __future__ import annotations
@@ -75,6 +86,7 @@ from ..cache import g_cacheplane
 from ..index.collection import CollectionDb
 from ..query import devcheck, engine
 from ..query.summary import highlight
+from ..utils import chaos as chaos_mod
 from ..utils import deadline as deadline_mod
 from ..utils import parms as parms_mod
 from ..utils import priority as priority_mod
@@ -102,8 +114,6 @@ NOT_PORTED = {
     "/admin/device": "item 5 (telemetry: devwatch)",
     "/admin/profiler": "item 5 (telemetry: the sampling profiler)",
     "/admin/graph": "item 5 (telemetry: the statsdb sampler)",
-    "/admin/transport": "item 4 (the cluster: the transport plane)",
-    "/admin/perf": "item 4 (the cluster: the fleet view)",
 }
 
 
@@ -357,19 +367,18 @@ class SearchHTTPServer:
     means ``cuda``, which raises without a card; pass ``"cpu"`` to run
     on the CPU). ``colldb``: an already open registry over ``base_dir``
     to serve (its collections keep their device). ``sharded``: a
-    ShardedCollection to front instead of the flat collections."""
+    ShardedCollection to front instead of the flat collections;
+    ``cluster``: a ClusterClient over node processes to front instead."""
 
     BAN_COOLDOWN_S = 60.0
 
     def __init__(self, base_dir, host: str = "127.0.0.1", port: int = 8000,
                  sharded=None, cluster=None, conf: Conf | None = None,
                  device=None, colldb: CollectionDb | None = None):
-        if cluster is not None:
-            raise NotImplementedError(
-                "cluster serving is not ported yet: ROADMAP item 4 (the "
-                "multi-process cluster)")
         #: ShardedCollection | None (the in-process mesh)
         self.sharded = sharded
+        #: ClusterClient | None (the multi-process cluster)
+        self.cluster = cluster
         self.colldb = colldb if colldb is not None \
             else CollectionDb(base_dir, device=device)
         self.host = host
@@ -545,7 +554,8 @@ class SearchHTTPServer:
                     g_stats.count("autoban.rejected")
                     return _json(429, {"error": "query rate limit "
                                                 "(autoban)"})
-                if coll is None and self.sharded is None:
+                if coll is None and self.sharded is None \
+                        and self.cluster is None:
                     return _json(404, {"error": "no such collection"})
                 # front-door classification: tier= param > propagated
                 # header > niceness bit > interactive
@@ -626,6 +636,10 @@ class SearchHTTPServer:
             return self._page_tenants(query)
         if path == "/admin/hosts":
             return 200, self._page_hosts(), "application/json"
+        if path == "/admin/perf":
+            return self._page_perf(query)
+        if path == "/admin/transport":
+            return self._page_transport(query)
         return _json(404, {"error": "no such page"})
 
     def _coll(self, query: dict):
@@ -693,8 +707,12 @@ class SearchHTTPServer:
         self.stats["queries"] += 1
         cname = query.get("c", "main")
         rc_coll = self._coll_read(query)
-        conf = rc_coll.conf if rc_coll is not None \
-            else self.sharded.shards[0].conf
+        if rc_coll is not None:
+            conf = rc_coll.conf
+        elif self.sharded is not None:
+            conf = self.sharded.shards[0].conf
+        else:  # a cluster front end: the default collection's parms
+            conf = self.colldb.get("main").conf
         ttl = float(conf.result_cache_ttl)
         swr = float(conf.result_cache_swr)
         ckey = gen = None
@@ -770,7 +788,8 @@ class SearchHTTPServer:
         once on a write. A page answered by a device index behind that
         version (the old index serving while a background rebuild runs)
         is served but not cached, so the fresh index's first answer is
-        not shadowed by a pre-write page."""
+        not shadowed by a pre-write page. A degraded page (a whole shard
+        missing) is served and never cached."""
         answered: dict = {}
         if ckey is not None:
             hit, page = self._result_cache.lookup(ckey, gen=gen)
@@ -803,7 +822,9 @@ class SearchHTTPServer:
     def _result_gen(self, rc_coll) -> tuple:
         """The result cache's generation: the version a write to the
         collection's posdb moves; on the mesh, every twin's posdb
-        version."""
+        version; on a cluster, every shard's generation pair."""
+        if self.cluster is not None:
+            return ("cluster",) + self.cluster.gen_vector()
         if self.sharded is not None:
             return ("sharded",) + tuple(
                 coll.posdb.version
@@ -817,7 +838,13 @@ class SearchHTTPServer:
         """One page; ``answered["generation"]`` receives the posdb
         version the device route answered at, ``answered["degraded"]``
         whether a whole shard was missing (such a page is not cached)."""
-        if self.sharded is not None:
+        if self.cluster is not None:
+            # the conf only carries the PQR factors; the read-only lookup
+            # above never created a collection for it
+            res = self.cluster.search(
+                q, topk=n, offset=s,
+                conf=rc_coll.conf if rc_coll is not None else None)
+        elif self.sharded is not None:
             if self.conf.serve_mesh:
                 # the mesh's resident loop serializes the device work;
                 # the core lock covers only the page build
@@ -828,11 +855,6 @@ class SearchHTTPServer:
                 with self._lock:
                     res = sharded_search(self.sharded, q, topk=n,
                                          offset=s)
-            if res.degraded:
-                if answered is not None:
-                    answered["degraded"] = True
-                self.stats["degraded"] = self.stats.get("degraded", 0) + 1
-                trace_mod.tag(results="degraded")
         elif self.conf.serve_device:
             # the resident device route through the micro-batcher. No
             # host fallback: a failed batch answers 500 (serve.device_
@@ -849,6 +871,11 @@ class SearchHTTPServer:
         else:
             with self._lock:
                 res = engine.search(rc_coll, q, topk=n, offset=s)
+        if res.degraded:
+            if answered is not None:
+                answered["degraded"] = True
+            self.stats["degraded"] = self.stats.get("degraded", 0) + 1
+            trace_mod.tag(results="degraded")
         if answered is not None and res.generation is not None:
             answered["generation"] = res.generation
         payload, ctype = render_results(
@@ -860,7 +887,9 @@ class SearchHTTPServer:
         """Cached page with optional highlight (PageGet.cpp)."""
         docid = int(query.get("d", "0"))
         self.stats["gets"] += 1
-        if self.sharded is not None:
+        if self.cluster is not None:
+            rec = self.cluster.get_document(docid)
+        elif self.sharded is not None:
             rec = self.sharded.get_document(docid)
         else:
             coll = self._coll_read(query)  # read path: never mint colls
@@ -884,6 +913,11 @@ class SearchHTTPServer:
         content = body.decode("utf-8", "replace") if body else \
             query.get("content", "")
         self.stats["injects"] += 1
+        if self.cluster is not None:
+            # delivered to every twin of the owning shard (a dead twin's
+            # copy parks in its ordered retry queue)
+            return _json(200, {"docId": int(
+                self.cluster.index_document(url, content))})
         if self.sharded is not None:
             ml = self.sharded.index_document(url, content)
         else:
@@ -900,6 +934,9 @@ class SearchHTTPServer:
         if not url:
             return _json(400, {"error": "missing u"})
         self.stats["deletes"] = self.stats.get("deletes", 0) + 1
+        if self.cluster is not None:
+            self.cluster.remove_document(url)
+            return _json(200, {"deleted": url})
         if self.sharded is not None:
             ok = self.sharded.remove_document(url)
         else:
@@ -945,7 +982,8 @@ class SearchHTTPServer:
         links = "".join(
             f'<li><a href="/admin/{p}{sfx}">{p}</a></li>'
             for p in ("stats", "mem", "cache", "traces", "parms",
-                      "admission", "tenants")) \
+                      "admission", "tenants", "perf", "transport",
+                      "hosts")) \
             + '<li><a href="/metrics">metrics</a></li>'
         rows = "".join(f"<tr><td>{k}</td><td>{v}</td></tr>"
                        for k, v in self.stats.items())
@@ -1161,14 +1199,164 @@ class SearchHTTPServer:
                 + (" &middot; <b>slow</b>" if tr.get("slow") else "")
                 + f'</p>{"".join(rows)}</div>')
 
+    def _fleet_view(self) -> tuple[dict, dict]:
+        """(hosts, fleet): per-host ``Stats.wire()`` payloads (None for an
+        unreachable host) and their bucket-wise merge. A cluster front
+        end scrapes every node's ``/rpc/stats``; a single process is a
+        one-host fleet."""
+        if self.cluster is not None:
+            sc = self.cluster.scrape()
+            return sc["hosts"], sc["fleet"]
+        w = g_stats.wire()
+        return {"local": w}, merge_wire([w])
+
+    def _page_perf(self, query: dict) -> tuple[int, str, str]:
+        """The fleet perf dashboard (PagePerf across hosts): one row per
+        latency metric with each host's p99 and the merged fleet
+        distribution (fleet percentiles come from merged histogram
+        buckets, never from averaging per-host percentiles), the SLO
+        burn rates, gauges and counters. ``?format=json`` returns the
+        merged view raw."""
+        from ..utils.stats import LatencyStat
+        hosts, fleet = self._fleet_view()
+        # evaluate against the view just scraped, so the page is fresh
+        if g_slo.objectives:
+            try:
+                g_slo.evaluate(fleet["counters"], fleet["latencies"])
+            except Exception:  # noqa: BLE001 — the page still renders
+                g_stats.count("slo.eval_errors")
+        slo_status = g_slo.status()
+        alerts = []
+        n_ovf = fleet["counters"].get("build.postings_overflow", 0)
+        if n_ovf:
+            alerts.append({
+                "name": "shard_split_needed", "count": n_ovf,
+                "hint": ("a shard hit the 2^31 stored-postings pack limit "
+                         "(build.postings_overflow): split the collection "
+                         "across more shards before the node boot-loops")})
+        # the device memory row: devwatch's HBM ledger is not ported
+        # (ROADMAP item 5), so the ledger is off and the row carries the
+        # allocator's bytes of this process
+        import torch
+        hbm = {"enabled": False, "ledger_bytes": 0,
+               "bytes_in_use": (torch.cuda.memory_allocated()
+                                if torch.cuda.is_available() else None),
+               "headroom": None}
+        if query.get("format") == "json":
+            return _json(200, {
+                "hosts": {
+                    a: None if w is None else {
+                        k: LatencyStat.from_wire(v).to_dict()
+                        for k, v in w.get("latencies", {}).items()}
+                    for a, w in hosts.items()},
+                "fleet": {
+                    "counters": fleet["counters"],
+                    "gauges": fleet["gauges"],
+                    "latencies": {
+                        k: {**st.to_dict(),
+                            "exemplars": [
+                                {"trace_id": tid, "ms": ms}
+                                for _, (tid, ms)
+                                in sorted(st.exemplars.items())]}
+                        for k, st in fleet["latencies"].items()},
+                },
+                "slo": slo_status,
+                "alerts": alerts,
+                "hbm": hbm,
+            })
+        pwd = query.get("pwd", "")
+        sfx = f"&pwd={urllib.parse.quote(pwd)}" if pwd else ""
+        addrs = sorted(hosts)
+        per_host = {
+            a: {} if hosts[a] is None else {
+                k: LatencyStat.from_wire(v)
+                for k, v in hosts[a].get("latencies", {}).items()}
+            for a in addrs}
+        lat_rows = []
+        for name in sorted(fleet["latencies"]):
+            st = fleet["latencies"][name]
+            cells = "".join(
+                f"<td>{per_host[a][name].quantile(0.99):.2f}</td>"
+                if name in per_host[a] else "<td>-</td>" for a in addrs)
+            d = st.to_dict()
+            ex = ""
+            if st.exemplars:
+                tid, _ms = st.exemplars[max(st.exemplars)]
+                ex = f' <a href="/admin/traces?id={tid}{sfx}">ex</a>'
+            lat_rows.append(
+                f"<tr><td>{name}</td>{cells}"
+                f"<td>{d['count']}</td><td>{d['avg_ms']:.2f}</td>"
+                f"<td>{d['p50_ms']:.2f}</td>"
+                f"<td>{d['p99_ms']:.2f}{ex}</td>"
+                f"<td>{d['max_ms']:.2f}</td></tr>")
+        hdr = "".join(f"<th>{html_mod.escape(a)} p99</th>" for a in addrs)
+        slo_rows = "".join(
+            f"<tr><td>{n}</td><td>{st['kind']}</td><td>{st['target']}</td>"
+            f"<td>{st['window_total']}</td><td>{st['window_bad']}</td>"
+            f"<td>{st['burn_rate']:.3f}</td>"
+            f"<td>{st['budget_remaining']:.3f}</td>"
+            f"<td>{'BURNING' if st['burning'] else 'ok'}</td></tr>"
+            for n, st in sorted(slo_status.items())) \
+            or "<tr><td colspan=8>no objectives declared</td></tr>"
+        gauge_rows = "".join(f"<tr><td>{k}</td><td>{v:g}</td></tr>"
+                             for k, v in sorted(fleet["gauges"].items()))
+        ctr_rows = "".join(f"<tr><td>{k}</td><td>{v}</td></tr>"
+                           for k, v in sorted(fleet["counters"].items()))
+        up = sum(1 for w in hosts.values() if w is not None)
+        alert_html = "".join(
+            f'<p style="color:#fff;background:#c00;padding:6px">'
+            f"ALERT {a['name']} (&times;{a['count']}): {a['hint']}</p>"
+            for a in alerts)
+        return 200, (
+            "<html><head><title>gb perf</title></head><body>"
+            "<h1>fleet perf</h1>"
+            f"{alert_html}"
+            f"<p>{up}/{len(hosts)} hosts scraped &middot; "
+            f'<a href="/admin/perf?format=json{sfx}">json</a> &middot; '
+            f'<a href="/metrics">metrics</a></p>'
+            f"<h2>latencies (ms)</h2>"
+            f"<table border=1><tr><th>metric</th>{hdr}"
+            "<th>fleet n</th><th>avg</th><th>p50</th><th>p99</th>"
+            f"<th>max</th></tr>{''.join(lat_rows)}</table>"
+            "<h2>SLOs</h2>"
+            "<table border=1><tr><th>objective</th><th>kind</th>"
+            "<th>target</th><th>window n</th><th>bad</th>"
+            "<th>burn rate</th><th>budget left</th><th></th></tr>"
+            f"{slo_rows}</table>"
+            f"<h2>gauges</h2><table border=1>{gauge_rows}</table>"
+            f"<h2>counters</h2><table border=1>{ctr_rows}</table>"
+            "</body></html>"), "text/html"
+
+    def _page_transport(self, query: dict) -> tuple[int, str, str]:
+        """Cluster transport health (JSON): the ``transport.*`` counters,
+        latencies and gauges, each peer's pool and RTT EWMAs, and on a
+        cluster the twin preferences of every shard."""
+        from ..parallel.transport import g_transport
+        body = g_stats.prefixed("transport.")
+        tr = (self.cluster.transport if self.cluster is not None
+              else g_transport)
+        body["peers"] = tr.stats()
+        if self.cluster is not None:
+            hm = self.cluster.hostmap
+            body["hostmap"] = {
+                f"shard{s}": {
+                    "twin_order": hm.twin_order(s),
+                    "alive": [bool(a) for a in hm.alive[s]],
+                    "rtt_ms": [round(1000.0 * float(v), 3)
+                               for v in hm.rtt_s[s]],
+                    "addrs": self.cluster.conf.addresses[s],
+                } for s in range(hm.n_shards)}
+        return _json(200, body)
+
     def _metrics_text(self) -> str:
-        """Prometheus-style text exposition of this process's metrics:
+        """Prometheus-style text exposition of the merged fleet view:
         latency histograms (with OpenMetrics exemplars where a sampled
-        trace landed in a bucket), per-tenant outcomes, counters and
-        gauges. Metric names ride in a ``name`` label."""
-        fleet = merge_wire([g_stats.wire()])
+        trace landed in a bucket), per-tenant outcomes, counters, gauges
+        and the number of hosts scraped. Metric names ride in a ``name``
+        label."""
+        hosts, fleet = self._fleet_view()
         lines = [
-            "# HELP osse_latency_ms latency histogram (ms)",
+            "# HELP osse_latency_ms merged fleet latency histogram (ms)",
             "# TYPE osse_latency_ms histogram",
         ]
         for name in sorted(fleet["latencies"]):
@@ -1203,6 +1391,8 @@ class SearchHTTPServer:
         lines.append("# TYPE osse_gauge gauge")
         lines.extend(f'osse_gauge{{name="{k}"}} {v:g}'
                      for k, v in sorted(fleet["gauges"].items()))
+        lines.append(f"osse_hosts_scraped "
+                     f"{sum(1 for w in hosts.values() if w is not None)}")
         return "\n".join(lines) + "\n"
 
     # --- lifecycle --------------------------------------------------------
@@ -1211,9 +1401,12 @@ class SearchHTTPServer:
         # the traffic-plane objective, declared by default so every
         # server exports slo.query_p99.* (operators may declare richer
         # objectives before start())
+        chaos_mod.maybe_enable()  # OSSE_CHAOS=<seed> arms the plane
         if not g_slo.objectives:
-            g_slo.declare_latency("query_p99", "serve.search",
-                                  threshold_ms=500.0, target=0.99)
+            g_slo.declare_latency(
+                "query_p99",
+                "cluster.query" if self.cluster is not None
+                else "serve.search", threshold_ms=500.0, target=0.99)
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -1285,13 +1478,35 @@ class SearchHTTPServer:
         failed evaluation costs one tick."""
         while not self._stop_ticks.wait(self.SLO_TICK_S):
             try:
+                if self.cluster is not None:
+                    # a front end's objectives read the merged fleet
+                    fl = self.cluster.scrape()["fleet"]
+                    g_slo.evaluate(fl["counters"], fl["latencies"])
+                    continue
                 g_slo.evaluate()
             except Exception:  # noqa: BLE001 — keep ticking
                 log.exception("slo evaluation failed")
                 g_stats.count("slo.eval_errors")
 
     def _page_hosts(self) -> str:
-        """The shard map (``PageHosts.cpp``)."""
+        """The shard map (``PageHosts.cpp``). On a cluster each node is
+        pinged now: ``alive`` is who answered, ``docsPerShard`` the doc
+        count of each shard's first answering twin (None when none
+        did)."""
+        if self.cluster is not None:
+            from ..parallel.cluster import PING_TIMEOUT_S
+            conf = self.cluster.conf
+            pings = [[self.cluster.transport.probe(a, timeout=PING_TIMEOUT_S)
+                      for a in conf.addresses[s]]
+                     for s in range(conf.n_shards)]
+            return json.dumps({
+                "shards": conf.n_shards,
+                "replicas": conf.n_replicas,
+                "alive": [[p is not None for p in row] for row in pings],
+                "docsPerShard": [next((p["docs"] for p in row
+                                       if p is not None), None)
+                                 for row in pings],
+            })
         if self.sharded is None:
             return json.dumps({"shards": 1, "mode": "single"})
         hm = self.sharded.hostmap

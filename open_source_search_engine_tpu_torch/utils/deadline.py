@@ -7,7 +7,10 @@ worker thread), and the checkpoints before device work call
 wave nobody waits for any more is never issued. :func:`note_met` counts
 ``deadline.met`` where a budgeted query finishes in time.
 
-The wire header form of the reference waits for the port's server.
+Across processes a deadline travels as the remaining budget in the
+``X-OSSE-Deadline`` header (:meth:`Deadline.header_value`), from which
+the node rebuilds a local one (:meth:`Deadline.from_header`): wall clocks
+do not agree between hosts, budgets do.
 """
 
 from __future__ import annotations
@@ -17,6 +20,10 @@ import time
 
 from . import trace as trace_mod
 from .stats import g_stats
+
+
+#: the wire header carrying the remaining budget (decimal seconds)
+DEADLINE_HEADER = "X-OSSE-Deadline"
 
 
 class DeadlineExceeded(RuntimeError):
@@ -40,6 +47,23 @@ class Deadline:
 
     def expired(self) -> bool:
         return self.at - time.monotonic() <= 0.0
+
+    def clamp(self, timeout_s: float) -> float:
+        """A sub-call timeout bounded by what is left of the budget
+        (floored at 0)."""
+        return max(0.0, min(float(timeout_s), self.remaining()))
+
+    def header_value(self) -> str:
+        return f"{max(self.remaining(), 0.0):.4f}"
+
+    @classmethod
+    def from_header(cls, value: str | None) -> "Deadline | None":
+        if not value:
+            return None
+        try:
+            return cls.after(float(value))
+        except (TypeError, ValueError):
+            return None
 
     def __repr__(self) -> str:  # noqa: D105
         return f"Deadline(remaining={self.remaining():.3f}s)"

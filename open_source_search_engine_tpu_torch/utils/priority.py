@@ -43,6 +43,10 @@ PRIORITY_HEADER = "X-OSSE-Priority"
 #: quota its coordinator would
 TENANT_HEADER = "X-OSSE-Tenant"
 
+#: tier -> the niceness bit the node planes honor (crawlbot work yields
+#: to interactive inside each node, not only at the front door)
+_TIER_NICENESS = {"interactive": 0, "suggest": 0, "crawlbot": 1}
+
 _ctx: contextvars.ContextVar = contextvars.ContextVar(
     "osse-priority-tier", default=None)
 
@@ -119,3 +123,8 @@ def classify(query: dict, niceness: int = 0,
     if niceness > 0:
         return "crawlbot"
     return "interactive"
+
+
+def tier_niceness(tier: str | None) -> int:
+    """The niceness bit a tier rides on the node planes."""
+    return _TIER_NICENESS.get(tier or "", 0)

@@ -120,6 +120,8 @@ class SloTracker:
         self.objectives: dict[str, SloObjective] = {}
         self.registry = registry if registry is not None else g_stats
         self._burning: set[str] = set()
+        #: the last evaluation per objective (the /admin/perf rows)
+        self._status: dict[str, dict] = {}
 
     def declare(self, obj: SloObjective) -> SloObjective:
         with self._lock:
@@ -163,8 +165,14 @@ class SloTracker:
         with self._lock:
             self._burning = {n for n, st in out.items()
                              if st["burning"]}
+            self._status.update(out)
         self.registry.gauge("slo.degraded", float(len(self._burning)))
         return out
+
+    def status(self) -> dict[str, dict]:
+        """The last evaluation per objective."""
+        with self._lock:
+            return dict(self._status)
 
     def degraded(self, name: str | None = None) -> bool:
         """The degrade signal: is any objective (or ``name``

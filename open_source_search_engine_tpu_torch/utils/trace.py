@@ -28,8 +28,14 @@ stage totals this package's scripts read:
 Threads: a fresh thread starts with an empty contextvars context, so a
 trace does not follow work into a pool on its own; re-attach the parent
 span in the worker (``with attach(sp): ...``), as the query batcher
-does. Not carried: the cross-host header, ``adopt`` and ``graft`` (the
-mesh's transport plane).
+does, or open the child with ``begin(name, parent=sp)``.
+
+Across processes the transport stamps each RPC with ``X-OSSE-Trace:
+<trace_id>:<parent_span_id>`` (:func:`header_for`); the node
+:meth:`Tracer.adopt` adopts it, runs its handler under a local root span and
+ships the finished subtree back in the reply (``"_trace"``), which the
+caller's RPC span grafts (:meth:`Span.graft`). Remote offsets are rebased onto
+the RPC span's start, so two hosts' clocks are never compared.
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ RING_KEEP = 128
 DEFAULT_SAMPLE_N = 64
 #: default slow-query threshold (ms); slower traces always kept
 DEFAULT_SLOW_MS = 1000.0
+#: HTTP header carrying "<trace_id>:<parent_span_id>" across processes
+TRACE_HEADER = "X-OSSE-Trace"
 
 #: span name → [calls, seconds] since the last :func:`reset`
 totals: defaultdict = defaultdict(lambda: [0, 0.0])
@@ -83,7 +91,7 @@ class Span:
     export exports with ``abandoned: true``."""
 
     __slots__ = ("trace_id", "span_id", "name", "host", "tags",
-                 "children", "_t0", "_t1")
+                 "children", "_grafts", "_t0", "_t1")
 
     def __init__(self, trace_id: str, name: str, host: str = "",
                  tags: dict | None = None):
@@ -93,8 +101,14 @@ class Span:
         self.host = host
         self.tags = dict(tags) if tags else {}
         self.children: list[Span] = []
+        #: remote subtrees (already-exported dicts) from RPC replies
+        self._grafts: list[dict] = []
         self._t0 = time.perf_counter()
         self._t1: float | None = None
+
+    def tag(self, **kw) -> "Span":
+        self.tags.update(kw)
+        return self
 
     def finish(self) -> None:
         if self._t1 is None:
@@ -104,6 +118,11 @@ class Span:
         sp = Span(self.trace_id, name, host=self.host, tags=tags)
         self.children.append(sp)
         return sp
+
+    def graft(self, subtree: dict) -> None:
+        """Hang a remote process's exported subtree under this span."""
+        if isinstance(subtree, dict):
+            self._grafts.append(subtree)
 
     def record(self, name: str, t0: float, t1: float | None = None,
                **tags) -> "Span":
@@ -115,21 +134,37 @@ class Span:
 
     def to_dict(self, base_t0: float, end: float) -> dict:
         t1 = self._t1
+        start_ms = (self._t0 - base_t0) * 1000.0
         d = {
             "id": self.span_id,
             "name": self.name,
             "host": self.host,
-            "start_ms": round((self._t0 - base_t0) * 1000.0, 3),
+            "start_ms": round(start_ms, 3),
             "dur_ms": round(((end if t1 is None else t1) - self._t0)
                             * 1000.0, 3),
             "tags": dict(self.tags),
         }
         if t1 is None:
             d["tags"]["abandoned"] = True
-        if self.children:
-            d["children"] = [c.to_dict(base_t0, end)
-                             for c in self.children]
+        kids = [c.to_dict(base_t0, end) for c in self.children]
+        # a remote subtree's offsets are relative to its own root: rebase
+        # them onto this (RPC) span's start
+        kids.extend(_shift(g, start_ms) for g in self._grafts)
+        if kids:
+            d["children"] = kids
         return d
+
+
+def _shift(node: dict, delta_ms: float) -> dict:
+    out = dict(node)
+    out["start_ms"] = round(node.get("start_ms", 0.0) + delta_ms, 3)
+    if node.get("children"):
+        out["children"] = [_shift(c, delta_ms) for c in node["children"]]
+    return out
+
+
+def span_count(node: dict) -> int:
+    return 1 + sum(span_count(c) for c in node.get("children", ()))
 
 
 # ---------------------------------------------------------------------------
@@ -138,6 +173,13 @@ class Span:
 
 def current_span() -> Span | None:
     return _ctx.get()
+
+
+def begin(name: str, parent: Span | None = None, **tags) -> Span | None:
+    """Open a child span without making it current, for work handed to
+    another thread or process; the caller owns ``finish()``."""
+    p = parent if parent is not None else _ctx.get()
+    return None if p is None else p.child(name, **tags)
 
 
 class attach:
@@ -236,6 +278,17 @@ def tag(**kw) -> None:
         log.debug("tags %s", kw)
 
 
+def header_for(sp: Span | None) -> str | None:
+    return None if sp is None else f"{sp.trace_id}:{sp.span_id}"
+
+
+def parse_header(value: str) -> tuple[str, str] | None:
+    tid, sep, psid = (value or "").partition(":")
+    if not sep or not tid:
+        return None
+    return tid, psid
+
+
 # ---------------------------------------------------------------------------
 # the tracer
 # ---------------------------------------------------------------------------
@@ -303,6 +356,38 @@ class _StartCM:
         self.tracer._finish(t)
 
 
+class _Adopted:
+    """Handle yielded by :meth:`Tracer.adopt` on the node side."""
+
+    __slots__ = ("root",)
+
+    def __init__(self, root: Span):
+        self.root = root
+
+    def export(self) -> dict:
+        self.root.finish()
+        return self.root.to_dict(self.root._t0, self.root._t1)
+
+
+class _AdoptCM:
+    """:meth:`Tracer.adopt`'s context manager: an :class:`attach` of the
+    local root that yields the adopted-trace handle."""
+
+    __slots__ = ("adopted", "_att")
+
+    def __init__(self, root: Span):
+        self.adopted = _Adopted(root)
+        self._att = attach(root)
+
+    def __enter__(self) -> _Adopted:
+        self._att.__enter__()
+        return self.adopted
+
+    def __exit__(self, *exc) -> None:
+        self._att.__exit__(*exc)
+        self.adopted.root.finish()
+
+
 class Tracer:
     """Process-wide trace collector: sampling decision, finished-trace
     ring, slow-query log. One instance (:data:`g_tracer`); the server
@@ -336,6 +421,16 @@ class Tracer:
         """Open a root trace. ``sampled=None`` → the head-sampling coin
         flip; ``True`` forces a full trace (debug=1, tests)."""
         return _StartCM(self, name, trace_id, sampled, tags)
+
+    def adopt(self, trace_id: str, parent_span_id: str, name: str,
+              host: str = "") -> _AdoptCM:
+        """Node side: continue a remote trace under a local root span.
+        An adopted trace never enters the local ring or slowlog: it ships
+        back to the caller inside the RPC reply."""
+        root = Span(trace_id, name, host=host or self.host)
+        if parent_span_id:
+            root.tags["parent"] = parent_span_id
+        return _AdoptCM(root)
 
     def recent(self) -> list[dict]:
         return list(self.ring)

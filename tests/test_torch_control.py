@@ -1,5 +1,7 @@
-"""The port's control plane: the process lifecycle, the daily merge, the
-repair rebuild and the CLI's ``save`` and ``repair`` verbs.
+"""The port's control plane: the process lifecycle, shard liveness
+(``Heartbeat``, with ``make_rpc_probe`` pinging real node servers), the
+daily merge, the repair rebuild and the CLI's ``save`` and ``repair``
+verbs.
 
 ``TestProcess`` is ``tests/test_control.py``'s; the daily merge's window
 parsing and ``tick`` run with a fixed clock; ``repair`` runs as in
@@ -26,7 +28,9 @@ from open_source_search_engine_tpu.index.collection import \
     Collection as JCollection
 from open_source_search_engine_tpu.query import engine as jengine
 from open_source_search_engine_tpu_torch.build import docproc
-from open_source_search_engine_tpu_torch.control import Process
+from open_source_search_engine_tpu_torch.control import Heartbeat, Process
+from open_source_search_engine_tpu_torch.control.process import \
+    make_rpc_probe
 from open_source_search_engine_tpu_torch.control.dailymerge import (
     DailyMerge, in_window, parse_window)
 from open_source_search_engine_tpu_torch.control.rebalance import repair
@@ -119,6 +123,77 @@ def test_parse_window(spec, want):
 def test_in_window():
     assert [h for h in range(24) if in_window(h, (2, 5))] == [2, 3, 4]
     assert [h for h in range(24) if in_window(h, (22, 2))] == [0, 1, 22, 23]
+
+
+class TestHeartbeat:
+    """``tests/test_control.py::TestHeartbeat``, and the probe over RPC."""
+
+    def test_dead_marking_and_recovery(self):
+        from open_source_search_engine_tpu_torch.parallel import HostMap
+        hm = HostMap(4)
+        down = {2}
+        hb = Heartbeat(hm, probe=lambda s: s not in down)
+        hb.check_once()
+        assert hm.alive[:, 0].tolist() == [True, True, False, True]
+        down.clear()
+        hb.check_once()
+        assert hm.alive.all()
+
+    def test_a_raising_probe_is_a_dead_shard(self):
+        from open_source_search_engine_tpu_torch.parallel import HostMap
+        hm = HostMap(2)
+
+        def probe(s):
+            if s == 1:
+                raise OSError("unreachable")
+            return True
+        Heartbeat(hm, probe=probe).check_once()
+        assert hm.alive[:, 0].tolist() == [True, False]
+
+    def test_rpc_probe_follows_real_nodes(self, tmp_path):
+        """Shard 0 has two twins, shard 1 one: a shard is alive while any
+        of its twins answers ``/rpc/ping``, and the heartbeat's own
+        thread marks the death and the return."""
+        from open_source_search_engine_tpu_torch.parallel import HostMap
+        from open_source_search_engine_tpu_torch.parallel.cluster import (
+            HostsConf, ShardNodeServer)
+        from open_source_search_engine_tpu_torch.parallel.transport import \
+            Transport
+        from tests.polling import wait_until
+        nodes = [ShardNodeServer(tmp_path / f"n{i}", device="cpu")
+                 for i in range(3)]
+        for n in nodes:
+            n.start()
+        conf = HostsConf(2, 2, [[f"127.0.0.1:{nodes[0].port}",
+                                 f"127.0.0.1:{nodes[1].port}"],
+                                [f"127.0.0.1:{nodes[2].port}",
+                                 f"127.0.0.1:{nodes[2].port}"]])
+        t = Transport()
+        hm = HostMap(2)
+        hb = Heartbeat(hm, probe=make_rpc_probe(conf, transport=t,
+                                                timeout_s=1.0),
+                       interval_s=0.05)
+        try:
+            hb.check_once()
+            assert hm.alive[:, 0].tolist() == [True, True]
+            nodes[0].stop()  # a twin of shard 0 is left
+            hb.check_once()
+            assert hm.alive[:, 0].tolist() == [True, True]
+            port = nodes[2].port
+            nodes[2].stop()
+            hb.start()
+            wait_until(lambda: not hm.alive[1, 0], timeout=10.0,
+                       desc="the heartbeat marked shard 1 dead")
+            nodes[2] = ShardNodeServer(tmp_path / "n2", port=port,
+                                       device="cpu")
+            nodes[2].start()
+            wait_until(lambda: hm.alive[1, 0], timeout=10.0,
+                       desc="the heartbeat marked shard 1 alive again")
+        finally:
+            hb.stop()
+            t.close()
+            for n in nodes:
+                n.stop()
 
 
 def _runs(coll):

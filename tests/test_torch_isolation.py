@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither ``jax`` nor the JAX
-package, and it never quietly runs on the CPU.
+package (the cluster's verbs and modules run with both made
+unimportable), and it never quietly runs on the CPU.
 
 The import check runs in a subprocess: this session's conftest has
 already imported jax."""
@@ -140,6 +141,51 @@ def test_serve_cli_help_imports_no_jax(tmp_path):
         timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "ISOLATED" in out.stdout and "--torch-device" in out.stdout
+
+
+_CLUSTER_PROBE = """
+import importlib.abc, runpy, sys
+sys.path.insert(0, {root!r})
+
+
+class NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "open_source_search_engine_tpu"):
+            raise ImportError(f"{{name}} is blocked in this probe")
+        return None
+
+
+sys.meta_path.insert(0, NoJax())
+sys.argv = ["open_source_search_engine_tpu_torch", {verb!r}, "--help"]
+try:
+    runpy.run_module("open_source_search_engine_tpu_torch",
+                     run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+from open_source_search_engine_tpu_torch.parallel import (
+    cluster, fleet, transport)
+from open_source_search_engine_tpu_torch.control.process import (
+    Heartbeat, make_rpc_probe)
+frame = transport.encode_bin({{"a": __import__("numpy").arange(3)}})
+assert transport.decode_bin(frame)["a"].tolist() == [0, 1, 2]
+assert fleet.PKG == "open_source_search_engine_tpu_torch"
+assert cluster.HostsConf.parse("127.0.0.1:1").n_shards == 1
+print("ISOLATED")
+"""
+
+
+@pytest.mark.parametrize("verb", ["node", "proxy"])
+def test_cluster_cli_help_runs_with_no_jax_importable(tmp_path, verb):
+    out = subprocess.run(
+        [sys.executable, "-c",
+         _CLUSTER_PROBE.format(root=str(ROOT), verb=verb)],
+        capture_output=True, text=True, cwd=tmp_path, env=_clean_env(),
+        timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "ISOLATED" in out.stdout and "--hosts" in out.stdout
+    if verb == "node":
+        assert "--torch-device" in out.stdout and "--device" in out.stdout
 
 
 def test_port_imports_no_jax_in_a_fresh_process(tmp_path):

@@ -160,8 +160,49 @@ def test_inject_get_delete_route_through_the_grid(mesh_servers):
 
 
 def test_cluster_argument_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 4"):
-        SearchHTTPServer(tmp_path, port=0, device="cpu", cluster=object())
+    """``cluster=`` is ported since: the server fronts a ClusterClient
+    over two node servers, ``/search`` is the client's merged page, and
+    ``/inject``, ``/get`` and ``/delete`` go to the owning shard."""
+    from open_source_search_engine_tpu_torch.parallel.cluster import (
+        ClusterClient, HostsConf, ShardNodeServer)
+    from open_source_search_engine_tpu_torch.serve.server import \
+        render_results
+    nodes = [ShardNodeServer(tmp_path / f"n{s}", device="cpu")
+             for s in range(2)]
+    for n in nodes:
+        n.start()
+    client = ClusterClient(HostsConf.parse(
+        "num-mirrors: 0\n" + "\n".join(f"127.0.0.1:{n.port}"
+                                        for n in nodes)),
+        use_heartbeat=False)
+    srv = SearchHTTPServer(tmp_path / "proxy", port=0, device="cpu",
+                           cluster=client)
+    try:
+        ids = []
+        for i in range(6):
+            code, body, _ = srv.handle(
+                "POST", "/inject", {"u": f"http://c{i}.test/p"},
+                f"<p>zqcluster words page {i}</p>".encode())
+            assert code == 200
+            ids.append(json.loads(body)["docId"])
+        assert sorted(n.coll.num_docs for n in nodes) != [0, 6]
+        code, body, _ = _get(srv, "/search", q="zqcluster", format="json")
+        assert code == 200 and json.loads(body)["totalMatches"] == 6
+        conf = srv.colldb.get("main").conf
+        assert json.loads(body) == json.loads(render_results(
+            client.search("zqcluster", topk=10, conf=conf), "json")[0])
+        code, page, _ = _get(srv, "/get", d=ids[0], q="zqcluster")
+        assert code == 200 and "zqcluster" in page
+        assert _get(srv, "/delete", u="http://c0.test/p")[0] == 200
+        assert json.loads(_get(srv, "/search", q="zqcluster",
+                               format="json")[1])["totalMatches"] == 5
+        hosts = json.loads(_get(srv, "/admin/hosts")[1])
+        assert hosts["shards"] == 2 and sum(hosts["docsPerShard"]) == 5
+    finally:
+        srv.stop()
+        client.close()
+        for n in nodes:
+            n.stop()
 
 
 # ---- rebalance -------------------------------------------------------------

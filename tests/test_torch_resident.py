@@ -312,7 +312,7 @@ class TestLifecycle:
                         if k.startswith("chaos.resident.loop."))
             # the replay: one issue and one collect decision per ticket
             g_chaos.enable(seed=7, rate=1.0)
-            kinds = [g_chaos.decide() for _ in range(12)]
+            kinds = [g_chaos.decide("resident.loop") for _ in range(12)]
         finally:
             g_chaos.disable()
         assert fired == 12

@@ -392,16 +392,24 @@ class TestEdge:
             before + 1
         assert srv.stats["errors"] == 1
 
-    @pytest.mark.parametrize("path", sorted(set(NOT_PORTED)
-                                            | {"/admin/hosts"}))
+    @pytest.mark.parametrize("path", sorted(
+        set(NOT_PORTED) | {"/admin/hosts", "/admin/transport",
+                           "/admin/perf"}))
     def test_left_out_endpoints_answer_501(self, servers, path):
-        code, body, _ = _get(servers[1], path)
+        code, body, ctype = _get(servers[1], path)
         if path not in NOT_PORTED:
-            # ported since (/admin/hosts, with the mesh): the
-            # reference's answer
-            jcode, jbody, _ = _get(servers[0], path)
-            assert (code, json.loads(body)) == (jcode, json.loads(jbody))
-            assert code == 200
+            # ported since: /admin/hosts with the mesh, the reference's
+            # answer; /admin/transport and /admin/perf with the cluster,
+            # the reference's status, type and JSON keys (the counters in
+            # them are each package's own)
+            jcode, jbody, jctype = _get(servers[0], path)
+            assert (code, ctype) == (jcode, jctype) and code == 200
+            if path == "/admin/hosts":
+                assert json.loads(body) == json.loads(jbody)
+                return
+            tj, jj = (json.loads(_get(srv, path, format="json")[1])
+                      for srv in (servers[1], servers[0]))
+            assert sorted(tj) == sorted(jj), (sorted(tj), sorted(jj))
             return
         assert code == 501 and "ROADMAP" in json.loads(body)["error"]
 
