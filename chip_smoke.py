@@ -12,6 +12,10 @@ times, after checking them bitwise against this checkout's.
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
+0. the port's doctor (``utils/devdoctor.py``): torch and CUDA versions,
+   the card's name, count, capability and free memory, and both kernels
+   built and loaded; any verdict but ``ok`` fails the run. The card's
+   peaks for every bound come from devwatch's table (``GPU_PEAKS``);
 1. probe the card (``torch.cuda.is_available()`` must hold) and print
    its name and power limit as ``nvidia-smi`` reports them;
 2. build every kernel of the query paths from the sources in this
@@ -30,7 +34,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    through ``docproc.index_batch`` in chunks of 512, then answer
    N_QUERIES unique queries through ``engine.search`` with the kernel
    counters reset just before; every scoring pass must launch K1 and
-   none may take the plain version. 8 of the queries and the long
+   none may take the plain version. 4 of the queries and the long
    queries (17 to 65 term groups) run again on ``device="cpu"`` over the
    same records: totals and docids equal, scores within rtol=1e-5. K1 is
    timed beside its plain version and its bound on the largest cube, and
@@ -97,6 +101,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    word the next /search finds (and a cached query misses after it);
    and with ``checkify`` on, the 64 trip nothing while an injected fault
    trips, is counted and answers 500;
+
+   (5j) the telemetry plane (``telemetry``, after (5d)): devwatch armed
+   and the tenant rebuilt, its HBM ledger equal to ``resident_bytes()``
+   column by column, no other index alive, the allocator's live bytes
+   within ``ALLOC_SLACK`` (1 GiB) of the ledger, ``reconcile()`` printed
+   (allocated, peak, free, fragmentation); one armed window of the resident batch of 64 and 4
+   resident clients x 16 in which the flight recorder's waves equal the
+   loop's, the rounds' escalations the index's, and the ``min_scores``
+   and ``fd_scores`` roofline dispatches the wrappers' launches; the
+   armed overhead (off and armed alternated, 3 pairs, medians, printed
+   and not gated); each roofline entry's bytes, operations, intensity
+   and verdict against the card's ridge; jitwatch armed over a warm
+   batch (compiles, transfers by site, off-boundary transfers and
+   syncs); ``/admin/hbm``, ``/admin/device``, ``/admin/jit``,
+   ``/admin/profiler`` (start, stop) and ``/admin/graph`` answering 200
+   and ``/metrics``' ``osse_hbm_bytes`` equal to the ledger;
 
    (5e) the numeric operators over the same collection (every page has
    a ``date`` fielddb record): 16 of the queries plain, with a date
@@ -172,7 +192,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and found; a SIGKILL of one node, a degraded answer while it is down,
    its respawn by the supervisor with its journal replayed, the 8 pages
    found and the queries answered as before the kill; a teardown that
-   leaves no process;
+   leaves no process. The nodes run with ``OSSE_DEVWATCH=1``: each
+   node's ``hbm.devindex.bytes`` (over ``/rpc/stats``) equals the
+   ``resident_bytes()`` of the base built in process over its shard;
 6. run the golden QA suite (``tests/golden``) on the card through the
    flat path and through ``search_device``, against
    ``tests/golden/expected.json``;
@@ -193,10 +215,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32 FLOP/s
-#: outside the tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_FP32_S = 67e12
+#: the card's peaks (HBM bytes/s, fp32 FLOP/s outside the tensor cores),
+#: read once the card is known from devwatch's table (``GPU_PEAKS``: the
+#: NVIDIA data sheet's H100 SXM and PCIe figures), the one copy
+PEAK_BYTES_S: float | None = None
+PEAK_FP32_S: float | None = None
 
 P = 16
 
@@ -206,6 +229,9 @@ P = 16
 N_DOCS = 100_000
 N_QUERIES = 64
 assert N_DOCS >= 65_536
+
+#: (5j): the most the allocator's live bytes may exceed the HBM ledger by
+ALLOC_SLACK = 1 << 30
 
 
 def log(msg: str) -> None:
@@ -348,29 +374,13 @@ def as_raw(res):
 
 def k1_bound(cube, counts):
     """Least time (ms) the card could take for K1 on these inputs (one
-    query's [T, P, D] cube or a wave's [B, T, P, D]), and what bounds it.
-    Bytes: the cube rows of the counted groups (the body reads no slot of
-    a group outside the min: a padding group, a negative), freq_weight
-    and counts read once, min_score written once. Operations (fp32, counted for what these inputs need): 6 per
-    valid slot of a counted term (weights, squared score), 330 per
-    present counted term-doc (the top-10 knock-out over 32 candidates and
-    its sum), and 15 per valid position pair of a counted term pair
-    within MAX_PAIR_SPAN (distance rules, product, one division, max)."""
-    import torch
+    query's [T, P, D] cube or a wave's [B, T, P, D]), and what bounds it:
+    the larger of the bytes over the HBM rate and the fp32 operations
+    over the peak, both counted by ``min_scores_kernel.work`` (what these
+    inputs need). Returns (ms, "bytes" | "operations", bytes, ops)."""
     from open_source_search_engine_tpu_torch.query.min_scores_kernel import \
-        MAX_PAIR_SPAN
-    if cube.dim() == 3:
-        cube, counts = cube[None], counts[None]
-    B, T, _, D = cube.shape
-    nbytes = int(counts.sum()) * P * D * 4 + B * (T * 4 + T + D * 4)
-    nv = (cube != 0).sum(dim=2).to(torch.float64)          # [B, T, D]
-    live = counts[:, :, None] & (nv > 0)
-    nv = torch.where(live, nv, torch.zeros_like(nv))
-    pair_evals = 0.0
-    for i in range(T):
-        for j in range(i + 1, min(i + 1 + MAX_PAIR_SPAN, T)):
-            pair_evals += float((nv[:, i] * nv[:, j]).sum())
-    ops = 6 * float(nv.sum()) + 330 * float(live.sum()) + 15 * pair_evals
+        work
+    nbytes, ops = work(cube, counts)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_FP32_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -379,25 +389,12 @@ def k1_bound(cube, counts):
 
 def k2_bound(g_quarter, g_qsyn, cube, dead, counts, tail):
     """Least time (ms) the card could take for K2 on these inputs, and
-    what bounds it. Bytes: each distinct quarter row the wave gathers
-    read once (4 slots of D words: padded groups and the quarters a term
-    leaves empty all point at the one zero slot), the tail when there is
-    one, the dead mask, the small per-query arrays, and min_score and
-    the bitmask written once. Operations: k1_bound's count over each
-    query's assembled cube."""
-    import torch
-    from open_source_search_engine_tpu_torch.query import \
-        fd_scores_kernel as fdk
-    B, TQ = g_quarter.shape
-    T, D = TQ // 4, dead.shape[0]
-    n_quarters = int(torch.unique(g_quarter).numel())
-    nbytes = (n_quarters * 4 * D * 4
-              + (tail.numel() * 4 if tail is not None else 0)
-              + D + B * TQ * 8 + B * T * 5 + B * D * 8)
-    ops = 0.0
-    for b in range(B):
-        c = fdk.assemble(g_quarter, g_qsyn, cube, dead, tail, b)
-        ops += k1_bound(c, counts[b])[3]
+    what bounds it, from ``fd_scores_kernel.work``: each distinct quarter
+    row read once, the tail, the dead mask, the small per-query arrays and
+    the outputs; K1's operation count over each query's assembled cube."""
+    from open_source_search_engine_tpu_torch.query.fd_scores_kernel import \
+        work
+    nbytes, ops = work(g_quarter, g_qsyn, cube, dead, counts, tail)
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_FP32_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -657,6 +654,294 @@ def serve_over_http(colldb, coll, queries, work, reset_counts, profile_fn):
     out["k2_launches"] = out["clients_4"]["k2_launches"]
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[serve] phase (5d) in {out['phase_s']:.1f} s")
+    return out
+
+
+def telemetry(colldb, coll, queries, work, card):
+    """(5j) the telemetry plane on the card, over the bench collection:
+    devwatch armed, the tenant is rebuilt so that its columns register
+    in the HBM ledger (``collection_bytes`` equals ``resident_bytes()``
+    exactly, column by column), no other index is alive, the allocator's
+    live bytes exceed the ledger by at most ``ALLOC_SLACK``, and
+    ``reconcile()`` is printed; one window
+    of the resident batch of 64 and 4 resident clients x 16, armed, in
+    which the flight recorder's waves equal the loop's, its rounds'
+    escalations add up to the index's, and the ``min_scores`` and
+    ``fd_scores`` roofline dispatches equal the wrappers' launches; the
+    armed overhead (the batch and the clients, devwatch off and armed,
+    alternated for 3 pairs: median wall and qps of each, the overhead in
+    %, printed and not gated); each roofline entry's bytes, operations,
+    intensity and verdict against the card's ridge; jitwatch armed over a
+    warm resident batch (compiles, transfers by site, off-boundary
+    transfers and syncs, printed and not gated); and the five pages and
+    ``/metrics``' ``osse_hbm_bytes`` through a server with devwatch
+    armed. Returns the phase's numbers."""
+    import gc
+    import threading
+    import urllib.parse
+
+    import torch
+    from open_source_search_engine_tpu_torch.query import engine
+    from open_source_search_engine_tpu_torch.query import \
+        fd_scores_kernel as fdk
+    from open_source_search_engine_tpu_torch.query import \
+        min_scores_kernel as msk
+    from open_source_search_engine_tpu_torch.serve.server import \
+        SearchHTTPServer
+    from open_source_search_engine_tpu_torch.serve.tenancy import \
+        g_residency
+    from open_source_search_engine_tpu_torch.utils import devwatch, jitwatch
+
+    t_phase = time.perf_counter()
+    SC = dict(topk=10, with_snippets=False, site_cluster=False)
+    out = {"card": card}
+    name = coll.name
+    on_card = coll.device.type == "cuda"
+
+    def batch():
+        t0 = time.perf_counter()
+        engine.search_device_batch(coll, queries, **SC, resident=True)
+        return time.perf_counter() - t0
+
+    def clients(n=4):
+        errors: list = []
+        start = threading.Barrier(n)
+
+        def client(c):
+            try:
+                start.wait(timeout=60)
+                for q in queries[c::n]:
+                    engine.search_device_batch(coll, [q], **SC,
+                                               resident=True)
+            except BaseException as exc:  # noqa: BLE001 — reported below
+                errors.append((c, repr(exc)))
+        ts = [threading.Thread(target=client, args=(c,), daemon=True)
+              for c in range(n)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        assert not any(t.is_alive() for t in ts), "a client hung"
+        assert not errors, errors
+        return wall
+
+    def k_launches():
+        return (msk.launches, fdk.launches_tail + fdk.launches_notail)
+
+    # ---- the ledger: arm, then rebuild the tenant so its columns note
+    g_residency.reset()
+    coll._device_index = None
+    devwatch.reset()
+    devwatch.enable()
+    try:
+        loop = engine.get_resident_loop(coll)
+        di = engine.get_device_index(coll)
+        cols = {k: t.numel() * t.element_size()
+                for k, t in di.columns().items()}
+        led = devwatch.g_devwatch.ledger_snapshot()
+        assert devwatch.collection_bytes(name) == di.resident_bytes(), (
+            devwatch.collection_bytes(name), di.resident_bytes())
+        assert led[name] == {"devindex": cols}, led
+        assert "(ingest)" not in led, led
+        rec = devwatch.reconcile()
+        d0 = rec["devices"][0]
+        out["ledger"] = dict(
+            ledger_bytes=rec["ledger_bytes"],
+            resident_bytes=di.resident_bytes(),
+            allocated_bytes=d0["bytes_in_use"],
+            peak_allocated_bytes=d0["peak_bytes_in_use"],
+            free_bytes=d0["headroom"], card_bytes=d0["bytes_limit"],
+            fragmentation=d0["fragmentation"])
+        # no other index is left on the card: (5d)'s injected device
+        # error once kept its wave's whole index alive, in a cycle, until
+        # the collector's next full pass (ROADMAP §3)
+        from open_source_search_engine_tpu_torch.query.devindex import \
+            DeviceIndex as _DI
+        others = [(x.base_source, x.n_docs, x.resident_bytes())
+                  for x in gc.get_objects()
+                  if isinstance(x, _DI) and x is not di]
+        assert others == [], f"other DeviceIndex objects alive: {others}"
+        # the allocator's live bytes beyond the ledger: the script's
+        # 256 MiB L2-flush buffer and the waves' buffers (371,146,752 B at
+        # 100,000 pages on an NVIDIA H100 80GB HBM3, 700.00 W; the leak
+        # above was 5,847,252,992 B)
+        if on_card:
+            assert d0["bytes_in_use"] - rec["ledger_bytes"] <= \
+                ALLOC_SLACK, (d0["bytes_in_use"], rec["ledger_bytes"])
+        log(f"[telemetry] ledger: {name} devindex "
+            f"{devwatch.collection_bytes(name)} B in {len(cols)} columns, "
+            f"equal to resident_bytes() and to the columns' bytes name by "
+            f"name; reconcile(): allocated {d0['bytes_in_use']} B, peak "
+            f"{d0['peak_bytes_in_use']} B, free (mem_get_info) "
+            f"{d0['headroom']} B of {d0['bytes_limit']} B, fragmentation "
+            f"(allocated the ledger cannot name) {d0['fragmentation']}")
+
+        # ---- one armed window: flight recorder and roofline dispatches
+        snap0 = devwatch.snapshot()
+        w0, l0, e0 = snap0["totals"]["waves"], loop.waves_issued, \
+            di.escalations
+        k0 = k_launches()
+        d0_k = (devwatch.g_devwatch.dispatches("min_scores"),
+                devwatch.g_devwatch.dispatches("fd_scores"))
+        t_first = batch()
+        t_first_clients = clients()
+        snap = devwatch.snapshot()
+        n_waves = snap["totals"]["waves"] - w0
+        assert n_waves == loop.waves_issued - l0, (n_waves,
+                                                  loop.waves_issued - l0)
+        assert n_waves <= devwatch.RING, n_waves
+        recent = snap["waves"][-n_waves:]
+        assert all(w["source"] == "resident" and w["error"] is None
+                   for w in recent)
+        esc = sum(r.get("escalations", 0) for w in recent
+                  for r in w["rounds"])
+        assert esc == di.escalations - e0, (esc, di.escalations - e0)
+        kl = k_launches()
+        disp = (devwatch.g_devwatch.dispatches("min_scores") - d0_k[0],
+                devwatch.g_devwatch.dispatches("fd_scores") - d0_k[1])
+        assert disp[0] > 0 and disp[1] > 0, disp
+        if on_card:  # the CPU's wrappers run the plain versions
+            assert disp == (kl[0] - k0[0], kl[1] - k0[1]), (disp, kl, k0)
+        split = {k: statistics.median(w[k] for w in recent) * 1e3
+                 for k in ("issue_s", "wait_s", "collect_s", "total_s")}
+        dev_s = sum(r["device_s"] for w in recent for r in w["rounds"])
+        out["window"] = dict(
+            waves=n_waves, escalations=esc, k1_dispatches=disp[0],
+            k2_dispatches=disp[1], batch_ms=t_first * 1e3,
+            clients_ms=t_first_clients * 1e3, median_split_ms=split,
+            device_wait_s=dev_s, rounds=sum(len(w["rounds"])
+                                            for w in recent))
+        log(f"[telemetry] armed window (the batch of {len(queries)} and 4 "
+            f"resident clients x {len(queries) // 4}, first dispatches "
+            f"counted): {n_waves} waves recorded = the loop's "
+            f"{loop.waves_issued - l0}; escalations in the rounds {esc} = "
+            f"the index's delta; roofline dispatches K1 {disp[0]}, K2 "
+            f"{disp[1]} = the wrappers' launches; median wave split ms "
+            + ", ".join(f"{k[:-2]} {v:.3f}" for k, v in split.items()))
+
+        # ---- armed overhead: off / armed alternated, 3 pairs
+        runs = {"off": [], "armed": []}
+        for _ in range(3):
+            for mode in ("off", "armed"):
+                (devwatch.disable if mode == "off" else devwatch.enable)()
+                runs[mode].append((batch(), clients()))
+        devwatch.enable()
+        oh = {}
+        for mode, rs in runs.items():
+            b = statistics.median(r[0] for r in rs)
+            c = statistics.median(r[1] for r in rs)
+            oh[mode] = dict(batch_ms=b * 1e3,
+                            batch_qps=len(queries) / b,
+                            clients_ms=c * 1e3,
+                            clients_qps=len(queries) / c,
+                            batch_runs_ms=[r[0] * 1e3 for r in rs],
+                            clients_runs_ms=[r[1] * 1e3 for r in rs])
+        for k in ("batch", "clients"):
+            oh[f"{k}_overhead_pct"] = 100.0 * (
+                oh["armed"][f"{k}_ms"] / oh["off"][f"{k}_ms"] - 1.0)
+        out["overhead"] = oh
+        log(f"[telemetry] armed overhead (median of 3, off / armed "
+            f"alternated): batch of {len(queries)} "
+            f"{oh['off']['batch_ms']:.2f} ms ({oh['off']['batch_qps']:.2f} "
+            f"qps) off, {oh['armed']['batch_ms']:.2f} ms "
+            f"({oh['armed']['batch_qps']:.2f} qps) armed, "
+            f"{oh['batch_overhead_pct']:+.2f}%; 4 resident clients "
+            f"{oh['off']['clients_ms']:.2f} ms "
+            f"({oh['off']['clients_qps']:.2f} qps) off, "
+            f"{oh['armed']['clients_ms']:.2f} ms "
+            f"({oh['armed']['clients_qps']:.2f} qps) armed, "
+            f"{oh['clients_overhead_pct']:+.2f}% (not gated; the "
+            "reference's gate was 2%)")
+
+        # ---- the roofline table
+        snap = devwatch.snapshot()
+        pk = snap["peaks"]
+        assert pk["assumed"] is not on_card, pk
+        roofs = []
+        for e in snap["rooflines"]:
+            roofs.append({k: e[k] for k in (
+                "kernel", "bucket", "bytes", "flops", "intensity",
+                "verdict", "dispatches", "modeled_bytes")})
+            log(f"[roofline] {e['kernel']} {e['bucket']}: {e['bytes']:.6g}"
+                f" B, {e['flops']:.6g} ops, intensity "
+                f"{e['intensity']:.4g} ops/B against the ridge "
+                f"{e['ridge']:.4g} ({pk['label']}): {e['verdict']}; "
+                f"{e['dispatches']} dispatches"
+                + (f"; modelled {e['modeled_bytes']} B"
+                   if e["modeled_bytes"] else ""))
+        out["rooflines"] = roofs
+        out["peaks"] = pk
+
+        # ---- jitwatch over a warm resident batch
+        jitwatch.enable()
+        jitwatch.reset()
+        try:
+            tripwire = jitwatch.g_jitwatch.tripwire
+            t_jit = batch()
+            js = jitwatch.snapshot()
+        finally:
+            jitwatch.disable()
+        by_site: dict = {}
+        offb: dict = {}
+        for e in js["events"]:
+            if e["kind"] != "transfer":
+                continue
+            key = f"{e['fn']}@{e['site']}"
+            by_site[key] = by_site.get(key, 0) + e["count"]
+            if not e["boundary"]:
+                offb[key] = offb.get(key, 0) + e["count"]
+        out["jit"] = dict(totals=js["totals"], transfers_by_site=by_site,
+                          offboundary_by_site=offb,
+                          tripwire=tripwire, batch_ms=t_jit * 1e3)
+        log(f"[jit] armed over a warm resident batch of {len(queries)} "
+            f"({t_jit * 1e3:.1f} ms with the watcher's own cost): totals "
+            f"{js['totals']}; transfers by site {by_site}; off-boundary "
+            f"transfers and syncs by site {offb or 'none'}")
+
+        # ---- the pages, through a server with devwatch armed
+        srv = SearchHTTPServer(work / "cuda", port=0, device=coll.device,
+                               colldb=colldb)
+        srv.start()
+        base = f"http://127.0.0.1:{srv.port}"
+        try:
+            for q in queries[:8]:
+                code, body = http_get(base, "/search", {
+                    "q": q, "c": name, "format": "json", "n": 10})
+                assert code == 200, (q, code, body[:300])
+            codes = {}
+            for path, params in (("/admin/hbm", {"format": "json"}),
+                                 ("/admin/hbm", {}),
+                                 ("/admin/device", {"format": "json"}),
+                                 ("/admin/device", {}),
+                                 ("/admin/jit", {}),
+                                 ("/admin/profiler", {"sample": "start"}),
+                                 ("/admin/profiler", {"sample": "stop"}),
+                                 ("/admin/graph", {})):
+                code, body = http_get(base, path, params)
+                codes[f"{path}?{urllib.parse.urlencode(params)}"] = code
+                assert code == 200, (path, params, code, body[:300])
+            hbm = json.loads(http_get(base, "/admin/hbm",
+                                      {"format": "json"})[1])
+            assert hbm["enabled"] and hbm["collections"][name] == \
+                devwatch.collection_bytes(name)
+            code, metrics = http_get(base, "/metrics", {})
+            want = (f'osse_hbm_bytes{{collection="{name}",'
+                    f'plane="devindex"}} '
+                    f'{devwatch.collection_bytes(name)}')
+            assert code == 200 and want in metrics.splitlines(), want
+        finally:
+            srv.stop()
+        out["pages"] = codes
+        log(f"[telemetry] pages through the server (devwatch armed): "
+            f"{codes}; /metrics carries {want!r}, equal to the ledger")
+    finally:
+        devwatch.disable()
+        devwatch.reset()
+        jitwatch.disable()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[telemetry] phase (5j) in {out['phase_s']:.1f} s")
     return out
 
 
@@ -1354,13 +1639,14 @@ def cluster_fleet(grid, name, queries, flat_totals, work, card, device):
     # the in-process reference: each shard's legs and the merged pages,
     # computed before the spawn and released before it
     over = leg_topk(10)
-    colls, legs, docs = [], [], []
+    colls, legs, docs, base_bytes = [], [], [], []
     t0 = time.perf_counter()
     for s in range(n_shards):
         c = Collection("shard", base / f"shard_{s:03d}", device=device)
         c.conf.pqr_enabled = False   # as a node sets it
         legs.append([leg_of(r) for r in engine.search_device_batch(
             c, queries, topk=over, with_snippets=False, site_cluster=False)])
+        base_bytes.append(engine.get_device_index(c).resident_bytes())
         engine.drop_device_index(c)
         colls.append(c)
         docs.append(c.num_docs)
@@ -1383,6 +1669,10 @@ def cluster_fleet(grid, name, queries, flat_totals, work, card, device):
                       use_device=True, supervise=True)
     srv = None
     clients: list = []
+    # the nodes run with the HBM ledger on (a child inherits the
+    # environment; its device layer arms devwatch at import)
+    saved_dw = os.environ.get("OSSE_DEVWATCH")
+    os.environ["OSSE_DEVWATCH"] = "1"
     try:
         t0 = time.perf_counter()
         fm.start_all()
@@ -1452,6 +1742,16 @@ def cluster_fleet(grid, name, queries, flat_totals, work, card, device):
         else:  # a rehearsal on the CPU runs the plain versions
             assert sum(plain) > 0, plain
         out.update(k1_launches=k1, k2_launches=k2)
+        # each node's ledger: its devindex bytes (the hbm.devindex.bytes
+        # gauge over /rpc/stats) equal the base built in this process
+        # over the same shard directory
+        hbm = [int(w["gauges"].get("hbm.devindex.bytes", -1)) for w in st]
+        assert hbm == base_bytes, (hbm, base_bytes)
+        out["node_hbm_devindex_bytes"] = hbm
+        log(f"[cluster] each node's HBM ledger (OSSE_DEVWATCH=1, "
+            f"hbm.devindex.bytes over /rpc/stats): {hbm} B, equal to the "
+            "resident_bytes() of the bases built in this process over the "
+            "same shard directories")
         # each node's allocator on the card (reserved, allocated GiB; its
         # CUDA context is not in them), and the whole card's used memory
         # as nvidia-smi reads it (every process, contexts included)
@@ -1631,6 +1931,15 @@ def cluster_fleet(grid, name, queries, flat_totals, work, card, device):
         for c in clients:
             c.close()
         fm.shutdown()
+        if saved_dw is None:
+            os.environ.pop("OSSE_DEVWATCH", None)
+        else:
+            os.environ["OSSE_DEVWATCH"] = saved_dw
+        # the proxy's start() armed this process's plane from the same
+        # variable: the later phases run with it off
+        from open_source_search_engine_tpu_torch.utils import devwatch
+        devwatch.disable()
+        devwatch.reset()
     assert fm.surviving_pids() == [], fm.surviving_pids()
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[cluster] fleet down, no surviving process; phase (5i) in "
@@ -1987,6 +2296,26 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
+    # ---- 0. the port's doctor: torch, CUDA, the card, both kernels built
+    # and loaded (in parallel; phase 2 then finds them built)
+    global PEAK_BYTES_S, PEAK_FP32_S
+    from open_source_search_engine_tpu_torch.utils import devdoctor, devwatch
+    t0 = time.perf_counter()
+    doctor = devdoctor.probe(expect_card=True)
+    log(f"[doctor] {json.dumps(doctor)} in {time.perf_counter() - t0:.1f} s")
+    if doctor["status"] != "ok":
+        print(f"FAIL: devdoctor verdict {doctor['status']}: "
+              f"{devdoctor.diagnose(doctor)}", file=sys.stderr)
+        return 1
+    peaks = devwatch.peaks_for(torch.cuda.get_device_name(0))
+    if peaks["assumed"]:
+        print(f"FAIL: no published peaks for {torch.cuda.get_device_name(0)!r}"
+              " in devwatch.GPU_PEAKS", file=sys.stderr)
+        return 1
+    PEAK_BYTES_S, PEAK_FP32_S = peaks["bw"], peaks["flops"]
+    log(f"[doctor] peaks ({peaks['label']}): {PEAK_BYTES_S:.4g} B/s, "
+        f"{PEAK_FP32_S:.4g} fp32 FLOP/s, ridge {peaks['ridge']:.4g}")
+
     from open_source_search_engine_tpu_torch.build import docproc
     from open_source_search_engine_tpu_torch.corpus import (
         assert_tie_run_parity, fd_inputs, gen_docs, long_queries,
@@ -2261,8 +2590,6 @@ def main() -> int:
         coll.num_docs, device="cpu")
     cpu.conf.pqr_enabled = False
     long_launches = msk.launches
-    # 8 queries: the CPU side of this check is the script's slowest step,
-    # and the whole run must stay well inside its time limit
     for q in queries[:8] + long_queries():
         a = cuda_res.get(q) or engine.search(coll, q, **SC)
         b = engine.search(cpu, q, **SC)
@@ -2738,13 +3065,17 @@ def main() -> int:
         g_stats.counters
     g_residency.reset()
     assert not loop.alive and loop.join(timeout=60)
-    del di, fresh, scratch, after, during
+    del di, fresh, scratch, after, during, t
     coll._device_index = None
 
     log(f"[serve] base built from: "
         f"{engine.get_device_index(coll).base_source}")
     served = serve_over_http(colldb, coll, queries, work, reset_counts,
                              report_profile)
+    g_residency.reset()
+    coll._device_index = None
+
+    telem = telemetry(colldb, coll, queries, work, smi)
     g_residency.reset()
     coll._device_index = None
 
@@ -2886,7 +3217,8 @@ def main() -> int:
         "oracle_build_s": t_oracle,
         "device_build_peak_gib": build_peak / 2**30,
         "device_build_spans_s": build_spans, "resident": resident,
-        "served": served, "numeric": numeric, "route_corpus": route,
+        "served": served, "telemetry": telem, "doctor": doctor,
+        "numeric": numeric, "route_corpus": route,
         "cold_start_s": t_cold, "cache_read_s": t_cached,
         "durability": durable, "mesh": meshed, "cluster": clustered,
         "index_docs_s": coll_rate}}

@@ -46,6 +46,10 @@ the oracle) and to the reference's ``devbuild``.
 
 These are tensor programs, not kernels: no Pallas kernel of the
 reference runs here.
+
+Telemetry: with devwatch on, a build's output columns register in the
+HBM ledger as ``("(ingest)", "build")`` until the DeviceIndex that
+consumes them drops the slice; the uploads report to jitwatch.
 """
 
 from __future__ import annotations
@@ -59,7 +63,7 @@ import torch
 from ..index import posdb
 from ..query import weights
 from ..query.packer import IMPACT_SCALE, MAX_POSITIONS
-from ..utils import trace
+from ..utils import devwatch, jitwatch, trace
 from ..utils.stats import g_stats
 
 P = MAX_POSITIONS
@@ -342,7 +346,18 @@ def _fetch_dir(out: dict) -> dict:
 
 
 def _upload(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    a = np.ascontiguousarray(a)
+    if jitwatch.g_jitwatch.enabled:
+        jitwatch.note_transfer("_upload", "h2d", a.nbytes)
+    return torch.from_numpy(a).to(device)
+
+
+def _note_staging(out: dict) -> None:
+    """The build's output columns in the HBM ledger (transient: the
+    DeviceIndex drops the slice once it holds the columns)."""
+    if devwatch.enabled():
+        devwatch.note_columns("(ingest)", "build", {
+            k: v for k, v in out.items() if isinstance(v, torch.Tensor)})
 
 
 def build_base(run_keys: list[np.ndarray], device) -> DeviceBuild | None:
@@ -373,6 +388,7 @@ def build_base(run_keys: list[np.ndarray], device) -> DeviceBuild | None:
         base_docids = out.pop("base_docids").cpu().numpy().astype(np.uint64)
         h_doc = out["doc_col"].cpu().numpy()
     g_stats.count("build.device_base")
+    _note_staging(out)
     return DeviceBuild(n=out["n"], n_pairs=out["n_pairs"], cols=out,
                        base_docids=base_docids, h_doc_col=h_doc, **dirs)
 
@@ -390,6 +406,7 @@ def build_delta(fp_: dict, docidx: np.ndarray, device) -> DeviceBuild | None:
     out = _delta_program(*cols)
     dirs = _fetch_dir(out)
     g_stats.count("build.device_delta")
+    _note_staging(out)
     return DeviceBuild(n=out["n"], n_pairs=out["n_pairs"], cols=out,
                        **dirs)
 

@@ -25,7 +25,7 @@ on-disk format, so either package opens a directory the other wrote:
 * :meth:`Rdb.attempt_merge` keeps the run count bounded.
 
 Not carried: the native C++ merge core (the numpy merge is the same
-function) and the chaos plane's Rdb fault points.
+function).
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from pathlib import Path
 
 import numpy as np
 
+from ..utils.chaos import g_chaos
 from ..utils.lockcheck import make_rlock
 from ..utils.log import get_logger
 from ..utils.membudget import g_membudget
@@ -647,6 +648,8 @@ class Rdb:
     def get_list(self, start_key: np.ndarray, end_key: np.ndarray
                  ) -> RecordBatch:
         """Merged range read across runs + memtable, tombstones applied."""
+        if g_chaos.enabled:
+            g_chaos.rdb_fault(self)
         sources = [r.batch().range(start_key, end_key) for r in self.runs]
         sources.append(self.mem.range(start_key, end_key))
         return merge_batches(sources)

@@ -24,13 +24,17 @@ shard) or through a ResidentLoop over :class:`MeshServeIndex` (the
 in-program merge with the 2-per-site dedup, ``serve_batch``). Every shard
 plans and scores with cluster-wide term frequencies and doc counts.
 
-Left out: the reference's devwatch ledger calls (the mesh staging
-buffers and the per-round notes); the port has no devwatch yet.
+Telemetry: with devwatch on, a mesh wave's staged operands are a
+``mesh_stage`` buffer of the HBM ledger from issue to collect (slot keys
+cycle mod 8), and each collect notes its round (device wait, fetched
+bytes, the merge window and its re-merges as escalations); the uploads
+report to jitwatch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -53,7 +57,7 @@ from ..query.packer import (MAX_POSITIONS, PackedQuery, PreparedQuery,
                             _bucket, _pad1, group_flags, local_sort_base,
                             pack_pass, pad_table, prepare_query)
 from ..query.scorer import merge_dedup_topk, score_core, top_k
-from ..utils import trace
+from ..utils import devwatch, jitwatch, trace
 from ..utils.log import get_logger
 from ..utils.membudget import g_membudget
 from ..utils.url import normalize
@@ -457,8 +461,16 @@ def _stack_rows(rows: list[PackedQuery]) -> dict[str, np.ndarray]:
                  else np.zeros(D, np.float32)))
 
 
+def _upload(a: np.ndarray, dev) -> torch.Tensor:
+    """One host array to ``dev`` without blocking (the mesh's staging)."""
+    if jitwatch.g_jitwatch.enabled:
+        jitwatch.note_transfer("_upload", "h2d", a.nbytes)
+    return torch.from_numpy(a).to(dev, non_blocking=True)
+
+
 def _score_shards(mesh, per_shard: list[list[PackedQuery]], local_k: int,
-                  use_filter: bool, use_sort: bool, extra=None):
+                  use_filter: bool, use_sort: bool, extra=None,
+                  staged: list | None = None):
     """Score ``per_shard[s]`` (B padded packs of shard s) on shard s's
     device: the shards of one device stack into one ``[S_g·B, ...]``
     cube with one K1 launch. ``extra[s]`` are per-shard ``[B, D]``
@@ -466,7 +478,7 @@ def _score_shards(mesh, per_shard: list[list[PackedQuery]], local_k: int,
     with the candidate counts ``[B]``. Returns, on ``mesh[0]``, the
     match counts ``[S, B]``, the top scores ``[S, B, k]`` and the top
     indices (or, with ``extra``, the gathered columns with pad-candidate
-    hits scored 0)."""
+    hits scored 0). ``staged``, when given, gets the bytes uploaded."""
     S = len(per_shard)
     B = len(per_shard[0])
     home = mesh[0]
@@ -478,8 +490,9 @@ def _score_shards(mesh, per_shard: list[list[PackedQuery]], local_k: int,
     cols = [None] * S
     for dev, shards in by_dev.items():
         a = _stack_rows([p for s in shards for p in per_shard[s]])
-        t = {k: torch.from_numpy(v).to(dev, non_blocking=True)
-             for k, v in a.items()}
+        t = {k: _upload(v, dev) for k, v in a.items()}
+        if staged is not None:
+            staged.append(sum(v.nbytes for v in a.values()))
         with trace.span("mesh.score", rows=len(shards) * B,
                         docs=int(a["siterank"].shape[-1])):
             n_m, top_s, top_i = score_core(
@@ -491,12 +504,11 @@ def _score_shards(mesh, per_shard: list[list[PackedQuery]], local_k: int,
                 filt=t["filt"] if use_filter else None,
                 sortc=t["sortc"] if use_sort else None)
         if extra is not None:
-            docs = torch.from_numpy(np.concatenate(
-                [extra[s][0] for s in shards])).to(dev)
-            shs = torch.from_numpy(np.concatenate(
-                [extra[s][1] for s in shards])).to(dev)
-            ncs = torch.from_numpy(np.concatenate(
-                [extra[s][2] for s in shards])).to(dev)
+            docs, shs, ncs = (np.concatenate([extra[s][i] for s in shards])
+                              for i in range(3))
+            if staged is not None:
+                staged.append(docs.nbytes + shs.nbytes + ncs.nbytes)
+            docs, shs, ncs = (_upload(x, dev) for x in (docs, shs, ncs))
             # pad-candidate hits (index past the shard's real count)
             top_s = torch.where(top_i < ncs[:, None], top_s, 0.0)
             g = (torch.gather(docs, 1, top_i), torch.gather(shs, 1, top_i))
@@ -669,9 +681,11 @@ class _MeshWave:
     qidx: list            # plan indices served by this wave
     out_k: int
     max_out: int
-    #: merge windows re-run for recall (the reference's devwatch
-    #: ``escalations`` of the round)
+    #: merge windows re-run for recall (the ``escalations`` of the
+    #: flight recorder's round)
     escalations: int = 0
+    #: the wave's ``mesh_stage`` key in the HBM ledger ("" when off)
+    stage_key: str = ""
 
 
 @dataclass
@@ -789,9 +803,10 @@ class MeshServeIndex:
                                                      cand)[0]
                     ncs[b] = d
                 extra.append((docs, shs, ncs))
+        staged: list = []
         nm, ts, (g_doc, g_sh) = _score_shards(
             self.mesh, [[packs[s] for packs in rows] for s in range(S)],
-            local_k, use_f, use_s, extra=extra)
+            local_k, use_f, use_s, extra=extra, staged=staged)
         self.waves += 1
         max_out = S * local_k
         out_k = min(_bucket(max(OVERFETCH_C * want, 64), 64), max_out)
@@ -801,6 +816,14 @@ class MeshServeIndex:
                   g_sh.transpose(0, 1).contiguous())
         wave = _MeshWave(out=None, blocks=blocks, qidx=list(qidx),
                          out_k=out_k, max_out=max_out)
+        if devwatch.enabled():
+            # the staged operands live on the card from issue until the
+            # collect drops the slot (keys cycle mod 8: in-flight waves
+            # never exceed the loop's depth)
+            self._stage_seq = getattr(self, "_stage_seq", 0) + 1
+            wave.stage_key = f"wave{self._stage_seq % 8}"
+            devwatch.note_buffer(self.sc.name, "mesh_stage",
+                                 wave.stage_key, int(sum(staged)))
         wave.out = self._merge(wave)
         return wave
 
@@ -827,8 +850,11 @@ class MeshServeIndex:
                 for qi in wave.qidx:
                     results[qi] = empty
                 continue
+            device_s = 0.0
             while True:
+                t_fetch = time.perf_counter()
                 n_kept, n_drop = (x.cpu().numpy() for x in wave.out[:2])
+                device_s += time.perf_counter() - t_fetch
                 K = wave.out_k
                 need_more = any(
                     n_kept[b] < want and n_kept[b] + n_drop[b] >= K
@@ -842,6 +868,16 @@ class MeshServeIndex:
                 self.escalations += 1
             total = wave.blocks[0].cpu().numpy()
             docids, shs, scs, cum = (x.cpu().numpy() for x in wave.out[2:])
+            if devwatch.enabled():
+                devwatch.note_round(
+                    coll=self.sc.name, kinds="mesh", waves=1,
+                    device_s=device_s,
+                    bytes_out=int(sum(x.nbytes for x in (
+                        n_kept, n_drop, docids, shs, scs, cum))),
+                    out_k=wave.out_k, escalations=wave.escalations)
+                if wave.stage_key:
+                    devwatch.drop_buffer(self.sc.name, "mesh_stage",
+                                         wave.stage_key)
             for b, qi in enumerate(wave.qidx):
                 nk, nd = int(n_kept[b]), int(n_drop[b])
                 # the greedy walk's clustered counter at the page cut:

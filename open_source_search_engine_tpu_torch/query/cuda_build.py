@@ -5,7 +5,8 @@ first use with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/torch_kernels/`` at the repository root, named by a hash of the
 source, the headers of ``csrc/`` and the flags (so an edit rebuilds), and
 loaded with ``ctypes``. Nothing here runs when a module is imported: the
-machines without ``nvcc`` import every module too.
+machines without ``nvcc`` import every module too. Each build and each
+load is a compile for ``utils/jitwatch.py``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..utils import jitwatch
 from . import weights
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -59,6 +61,7 @@ def build(name: str) -> tuple[Path, str]:
     report = so.with_name(f"{so.name}.ptxas.txt")
     if so.exists():
         return so, report.read_text() if report.exists() else ""
+    jitwatch.note_compile(name, "nvcc")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
@@ -77,7 +80,9 @@ def load(name: str, symbol: str, argtypes: list):
     key = (name, symbol)
     fn = _libs.get(key)
     if fn is None:
-        fn = getattr(ctypes.CDLL(str(build(name)[0])), symbol)
+        path = build(name)[0]
+        jitwatch.note_compile(name, "load")
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.restype = ctypes.c_int
         fn.argtypes = argtypes
         _libs[key] = fn

@@ -57,7 +57,14 @@ gates the match of every route, and under ``gbsortby:`` the key is the
 score (in F1 it is also the phase-1 bound, so a sorted query escalates
 only where the top-8-per-block selection misses a key).
 
-Not carried in this slice: the telemetry plane.
+Telemetry (``utils/devwatch.py``, ``utils/jitwatch.py``, off unless
+``OSSE_DEVWATCH=1`` / ``OSSE_JITWATCH=1``): every base, delta and regrow
+build registers its columns in the HBM ledger; each collect round is
+noted for the wave flight recorder; each wave dispatch is a roofline
+entry under the reference's kernel names and shape buckets, its work the
+sum of its kernel launches' counts; ``_put`` and the wave fetch report
+their copies.
+
 Every tensor lives on ``self.device`` (the collection's device unless
 given); the wrappers of K1 and K2 pick the kernel or its plain version
 by that device.
@@ -68,6 +75,7 @@ from __future__ import annotations
 import contextlib
 import hashlib
 import os
+import time
 import zipfile
 from dataclasses import dataclass
 from pathlib import Path
@@ -82,7 +90,7 @@ from ..index import clusterdb as clusterdb_mod
 from ..index import posdb
 from ..index.collection import Collection
 from ..index.rdblite import merge_batches
-from ..utils import trace
+from ..utils import devwatch, jitwatch, trace
 from ..utils.log import get_logger
 from ..utils.stats import g_stats
 from . import devcheck, fd_scores_kernel, weights
@@ -93,6 +101,12 @@ from .packer import (IMPACT_SCALE, MAX_POSITIONS, T_FLOOR, _bucket, _pad1,
 from .scorer import final_multipliers, match_gates, min_scores, top_k
 
 log = get_logger("devindex")
+
+# the device layer is the first import on every device path: turning the
+# watchers on here means OSSE_JITWATCH=1 / OSSE_DEVWATCH=1 cover the
+# tests, the chip smoke test and the server without each opting in
+jitwatch.maybe_enable()
+devwatch.maybe_enable()
 
 # ---- tuning constants: the reference's, unchanged. The byte budgets
 # are a 16 GB TPU's; they decide which terms get dense and cube rows and
@@ -127,6 +141,22 @@ WAVE_RESERVE_BYTES = 5 << 29
 _CACHE_KEYS = ("dir_termids", "base_df", "dir_dstart", "dir_pstart",
                "base_docids", "docidx", "pocc", "payload", "doc_col",
                "imp_col", "rs_col", "cnt_col", "siterank", "langid")
+
+#: the sparse-lane tile ladder of the reference's F1 wave (its
+#: ``wave_bytes_per_query`` model and roofline buckets read it; torch
+#: waves run at their exact lane count)
+LSP_BUCKETS = (128, 512, 2048)
+
+
+def _row_bucket(m: int) -> int:
+    """The reference's F1 row ladder (dense Rd and sparse Rs rows)."""
+    return 2 if m <= 2 else (4 if m <= 4 else (
+        16 if m <= 16 else _bucket(m, 64)))
+
+
+def _lsp_bucket(mls: int) -> int:
+    """The smallest sparse-lane tile of ``LSP_BUCKETS`` holding ``mls``."""
+    return next(b for b in LSP_BUCKETS if mls <= b)
 
 #: FD scatter-tail budget: non-cube postings a query may scatter before
 #: it falls back to the generic F2
@@ -497,6 +527,8 @@ class DeviceIndex:
         a = np.ascontiguousarray(a)
         if a.dtype == np.uint32:
             a = a.view(np.int32)
+        if jitwatch.g_jitwatch.enabled:
+            jitwatch.note_transfer("_put", "h2d", a.nbytes)
         t = torch.from_numpy(a)
         if self.device.type == "cuda":
             return t.pin_memory().to(self.device, non_blocking=True)
@@ -525,8 +557,8 @@ class DeviceIndex:
         rdb = self.coll.posdb
         if rdb.version == self._built_version:
             return False
-        self._sitehash = None    # clusterdb view refreshes lazily
-        self._docid_sorted = None
+        self._cluster = None     # clusterdb view refreshes lazily
+        self._docid_view = None
         self._fcols = {}         # fielddb columns re-derive
         self._fswave = {}
         # one snapshot of the run list: a merge that swaps it meanwhile
@@ -551,6 +583,12 @@ class DeviceIndex:
         else:
             self._build_delta()
         self._built_version = rdb.version
+        if devwatch.enabled():
+            # one registration point covers base, delta and regrow; the
+            # device build's staging slice is consumed by now
+            devwatch.drop("(ingest)", "build")
+            devwatch.note_columns(self.coll.name, "devindex",
+                                  self.columns())
         return True
 
     def _postings_overflow(self) -> ValueError:
@@ -1015,48 +1053,56 @@ class DeviceIndex:
         return sum(t.numel() * t.element_size()
                    for t in self.columns().values())
 
-    def _docid_pos(self, docids_arr: np.ndarray) -> tuple[np.ndarray,
-                                                          np.ndarray]:
-        """(row positions, found mask) of docids in all_docids, which is
-        [sorted base] + [sorted delta] and so needs a sorted view."""
-        if self._docid_sorted is None or \
-                len(self._docid_order) != len(self.all_docids):
-            self._docid_order = np.argsort(self.all_docids, kind="stable")
-            self._docid_sorted = self.all_docids[self._docid_order]
-        pos = np.searchsorted(self._docid_sorted, docids_arr)
-        ok = pos < len(self._docid_sorted)
-        ok[ok] = self._docid_sorted[pos[ok]] == docids_arr[ok]
+    def _docid_pos(self, docids_arr: np.ndarray, all_docids=None
+                   ) -> tuple[np.ndarray, np.ndarray]:
+        """(row positions, found mask) of docids in ``all_docids`` (the
+        index's doc axis unless a snapshot of it is given), which is
+        [sorted base] + [sorted delta] and so needs a sorted view. The
+        view is kept with the array it sorts: a page build reading it
+        while the loop thread's refresh swaps the axis never pairs one
+        axis's view with the other's rows."""
+        ad = self.all_docids if all_docids is None else all_docids
+        view = self._docid_view
+        if view is None or view[0] is not ad:
+            order = np.argsort(ad, kind="stable")
+            view = self._docid_view = (ad, order, ad[order])
+        _, order, srt = view
+        pos = np.searchsorted(srt, docids_arr)
+        ok = pos < len(srt)
+        ok[ok] = srt[pos[ok]] == docids_arr[ok]
         rows = np.zeros(len(docids_arr), np.int64)
-        rows[ok] = self._docid_order[pos[ok]]
+        rows[ok] = order[pos[ok]]
         return rows, ok
 
     def _cluster_cols(self):
-        """Clusterdb sitehash and langid columns aligned to all_docids
-        (Clusterdb.h:42), built lazily."""
-        if self._sitehash is None:
+        """(doc axis, sitehash, langid): the clusterdb columns aligned to
+        the doc axis they were built for (Clusterdb.h:42), built lazily
+        and again once a refresh has moved the axis."""
+        ad = self.all_docids
+        cc = self._cluster
+        if cc is None or cc[0] is not ad:
             cl = self.coll.clusterdb.get_all()
-            sh = np.zeros(len(self.all_docids), np.int64)
-            lg = np.zeros(len(self.all_docids), np.int64)
+            sh = np.zeros(len(ad), np.int64)
+            lg = np.zeros(len(ad), np.int64)
             if len(cl):
                 f = clusterdb_mod.unpack_key(cl.keys)
-                rows, ok = self._docid_pos(f["docid"])
+                rows, ok = self._docid_pos(f["docid"], ad)
                 sh[rows[ok]] = f["sitehash"][ok].astype(np.int64)
                 lg[rows[ok]] = f["langid"][ok].astype(np.int64)
-            self._sitehash = sh
-            self._langid_col = lg
-        return self._sitehash, self._langid_col
+            cc = self._cluster = (ad, sh, lg)
+        return cc
 
     def sitehash_of(self, docid: int) -> int:
         """The docid's sitehash from the clusterdb column: site clustering
         runs off it without a titledb read (Msg51.h:96)."""
-        sh, _ = self._cluster_cols()
-        rows, ok = self._docid_pos(np.array([docid], np.uint64))
+        ad, sh, _ = self._cluster_cols()
+        rows, ok = self._docid_pos(np.array([docid], np.uint64), ad)
         return int(sh[rows[0]]) if ok[0] else 0
 
     def langid_of(self, docid: int) -> int:
         """Docid → langid from the same clusterdb columns."""
-        _, lg = self._cluster_cols()
-        rows, ok = self._docid_pos(np.array([docid], np.uint64))
+        ad, _, lg = self._cluster_cols()
+        rows, ok = self._docid_pos(np.array([docid], np.uint64), ad)
         return int(lg[rows[0]]) if ok[0] else 0
 
     # --- fielddb columns (gbmin/gbmax/gbsortby: the datedb role) ---------
@@ -1436,7 +1482,7 @@ class DeviceIndex:
                     else self._f1_step_terminal()
                 for a in range(0, len(idxs), step):
                     chunk = idxs[a:a + step]
-                    waves.append(("f1", kappa, k2g, chunk, self._run_batch(
+                    waves.append(("f1", kappa, k2g, chunk, self._costed_f1(
                         [plans[i] for i in chunk], kappa, k2g)))
             fd = [i for i in f2 if plans[i].direct_ok]
             fg = [i for i in f2 if not plans[i].direct_ok]
@@ -1462,7 +1508,7 @@ class DeviceIndex:
                                   key=lambda kv: (kv[0][0], str(kv[0][1]))):
                 for a in range(0, len(idxs), fd_step):
                     chunk = idxs[a:a + fd_step]
-                    waves.append(("f2", 0, k2v, chunk, self._run_batch_fd(
+                    waves.append(("f2", 0, k2v, chunk, self._costed_fd(
                         [plans[i] for i in chunk], k2v, f2_nsel)))
             fg_parts: dict = {}
             for i in fg:
@@ -1471,7 +1517,7 @@ class DeviceIndex:
                                   key=lambda kv: str(kv[0])):
                 for a in range(0, len(idxs), bmax):
                     chunk = idxs[a:a + bmax]
-                    waves.append(("f2", 0, k2v, chunk, self._run_batch_f2(
+                    waves.append(("f2", 0, k2v, chunk, self._costed_f2(
                         [plans[i] for i in chunk], k2v, f2_nsel)))
         return waves
 
@@ -1484,6 +1530,9 @@ class DeviceIndex:
         if not outs:
             return None, None, shapes
         flat = torch.cat([o.reshape(-1) for o in outs])
+        if jitwatch.g_jitwatch.enabled:
+            jitwatch.note_transfer("_queue_fetch", "d2h",
+                                   flat.numel() * flat.element_size())
         if flat.device.type != "cuda":
             return flat, None, shapes
         host = torch.empty(flat.numel(), dtype=torch.int32, pin_memory=True)
@@ -1514,8 +1563,10 @@ class DeviceIndex:
         k_req = pending.k_req
         fetch = pending.fetch
         while waves:
+            t_fetch = time.perf_counter()
             with trace.span("devindex.device", waves=len(waves)):
                 outs = self._wait_fetch(fetch)
+            t_got = time.perf_counter()
             f1_next: list[int] = []
             f2_next: list[int] = []
             for (kind, kappa, k2g, idxs, _), out in zip(waves, outs):
@@ -1547,6 +1598,19 @@ class DeviceIndex:
                                             route=kind)
                     self._emit(results, i, nm, idx, scores)
             self.escalations += len(f1_next) + len(f2_next)
+            if devwatch.enabled():
+                # the flight recorder's round: the device wait and the
+                # fetched bytes beside the modelled F1 wave bytes
+                devwatch.note_round(
+                    coll=self.coll.name,
+                    kinds="+".join(sorted({w[0] for w in waves})),
+                    waves=len(waves), device_s=t_got - t_fetch,
+                    bytes_out=int(sum(o.nbytes for o in outs)),
+                    modeled_f1_bytes=int(sum(
+                        self.wave_bytes_per_query(
+                            [plans[i] for i in w[3]]) * len(w[3])
+                        for w in waves if w[0] == "f1")),
+                    escalations=len(f1_next) + len(f2_next))
             f2_nsel = min(f2_nsel * 4, self.D_cap)
             waves = self._issue_waves(
                 plans, f1_next, f2_next, pending.topk, pending.k2v,
@@ -1604,6 +1668,106 @@ class DeviceIndex:
         only [T, P, D]-scale tensor is the posting tail (T ≤ 8)."""
         per_q = 8 * MAX_POSITIONS * self.D_cap * 4
         return max(4, min(16, (4 << 30) // max(per_q, 1)))
+
+    # --- roofline attribution ------------------------------------------
+
+    def wave_bytes_per_query(self, plans: list[ResidentPlan],
+                             packed: bool = True) -> float:
+        """Modelled HBM bytes the F1 wave path streams per query, the
+        reference's model as it stands (its packed layout: f16 impacts,
+        uint8 doc meta, length-bucketed Lsp tiles; or the unpacked one:
+        f32 impacts, int32 meta, flat 2048-lane tiles), with its bucket
+        ladders, so that it reads the same for the same plans."""
+        imp = 2 if packed else 4
+        meta = 1 if packed else 4
+        V = self.d_dense_imp.shape[0]
+        D = self.D_cap
+        B = max(len(plans), 1)
+        total = 0.0
+        for p in plans:
+            Rs = _row_bucket(max(len(p.s_start), 1))
+            mls = int(p.s_len.max()) if len(p.s_len) else 0
+            Lsp = _lsp_bucket(mls) if packed else LSP_BUCKETS[-1]
+            Rd = _row_bucket(max(len(p.d_slot), 1))
+            T = max(len(p.required), 1)
+            k2 = min(128, D)
+            # sparse lane gathers: doc4 + imp + rs4 + cnt1 + dead1
+            total += Rs * Lsp * (4 + imp + 4 + 1 + 1)
+            # doc-meta columns the multiplier/alive gates stream [D]
+            total += D * (meta + meta + 1)
+            # phase-2 payload + dense rs/cnt gathers (layout-invariant)
+            total += k2 * T * self.P * 4 + Rd * k2 * 5
+        # the [V, D] dense impact matrix streams once per WAVE
+        total += V * D * imp
+        return total / B
+
+    def _costed(self, name: str, bucket: tuple, modeled_bytes, fn,
+                *args):
+        """Run one wave, roofline-attributing its (kernel, shape bucket)
+        on first sight: the work is the sum of the wave's kernel
+        launches' counts (``work()`` beside each kernel), so every shape
+        has a bandwidth or compute verdict next to the modelled wave
+        bytes."""
+        if not devwatch.enabled():
+            return fn(*args)
+        with devwatch.launches() as thunks:
+            out = fn(*args)
+        devwatch.note_cost(name, bucket, lambda: devwatch.sum_work(thunks),
+                           modeled_bytes=modeled_bytes)
+        return out
+
+    def _costed_f1(self, plans, kappa: int, k2: int):
+        """F1 under the reference's ``devindex._two_phase`` entry, bucket
+        (B, Rd, Rs, Lsp, κ, k2) on its pinned ladders."""
+        if not devwatch.enabled():
+            return self._run_batch(plans, kappa, k2)
+        Rd = _row_bucket(max([len(p.d_slot) for p in plans] + [1]))
+        Rs = _row_bucket(max([len(p.s_start) for p in plans] + [1]))
+        Lsp = _lsp_bucket(max([int(p.s_len.max()) if len(p.s_len) else 0
+                               for p in plans] + [0]))
+        B = next((b for b in (4, 8, 16, 32) if len(plans) <= b), 64)
+        B = min(B, self._f1_bmax())
+        bucket = (B, Rd, Rs, Lsp, kappa, k2)
+        # the model is read at the bucket's first dispatch only
+        modeled = None if ("devindex._two_phase", bucket) in \
+            devwatch.g_devwatch.costs \
+            else self.wave_bytes_per_query(plans) * B
+        return self._costed("devindex._two_phase", bucket, modeled,
+                            self._run_batch, plans, kappa, k2)
+
+    def _costed_f2(self, plans, k2: int, n_sel: int):
+        """F2 under ``devindex._full_cube``, bucket (B, Rc, Rp, Lp, k2,
+        n_sel)."""
+        if not devwatch.enabled():
+            return self._run_batch_f2(plans, k2, n_sel)
+        Rc = _bucket(max([len(p.c_slot) for p in plans] + [1]), 8)
+        mrp = max([len(p.p_start) for p in plans] + [1])
+        Rp = 8 if mrp <= 8 else (32 if mrp <= 32 else _bucket(mrp, 64))
+        maxlen = max([int(p.p_len.max()) if len(p.p_len) else 1
+                      for p in plans] + [1])
+        Lp = F2_LPOST_FLOOR if maxlen <= F2_LPOST_FLOOR else F2_SCATTER_MAX
+        B = 4 if len(plans) <= 4 else max(self._f2_bmax(), len(plans))
+        return self._costed("devindex._full_cube",
+                            (B, Rc, Rp, Lp, k2, min(n_sel, self.D_cap)),
+                            None, self._run_batch_f2, plans, k2, n_sel)
+
+    def _costed_fd(self, plans, k2: int, n_sel: int):
+        """FD under ``devindex._direct_cube``, bucket (B, T, Rp, Lp, k2,
+        n_sel)."""
+        if not devwatch.enabled():
+            return self._run_batch_fd(plans, k2, n_sel)
+        T = max(len(p.required) for p in plans)
+        mrp = max([len(p.p_start) for p in plans] + [1])
+        Rp = 4 if mrp <= 4 else _bucket(mrp, 8)
+        maxlen = max([int(p.p_len.max()) if len(p.p_len) else 0
+                      for p in plans] + [0])
+        Lp = 0 if maxlen == 0 else (512 if maxlen <= 512 else (
+            F2_LPOST_FLOOR if maxlen <= F2_LPOST_FLOOR
+            else F2_SCATTER_MAX))
+        B = 4 if len(plans) <= 4 else max(self._fd_bmax(), len(plans))
+        return self._costed("devindex._direct_cube",
+                            (B, T, Rp, Lp, k2, min(n_sel, self.D_cap)),
+                            None, self._run_batch_fd, plans, k2, n_sel)
 
     # --- the three wave programs ---------------------------------------
 

@@ -470,8 +470,14 @@ def search_device_batch(coll: Collection, queries, *, topk: int = 10,
                               resident=True):
             ticket = loop.submit(plans, topk=ktot, lang=lang,
                                  deadline=deadline_mod.current())
-            raw = ticket.wait()
-        di = ticket.di  # the index the wave ran against
+            try:
+                raw = ticket.wait()
+                di = ticket.di  # the index the wave ran against
+            finally:
+                # a failed wave's error keeps this frame in its
+                # traceback: with the ticket out of it, the ticket and
+                # its index make no cycle with the error
+                del ticket
     else:
         di = get_device_index(coll)
         with trace.timed_span("query.device_batch", queries=len(plans)):

@@ -36,8 +36,10 @@ import ctypes
 
 import torch
 
+from ..utils import devwatch
 from . import cuda_build
 from .min_scores_kernel import KERNEL_P, min_scores_plain
+from .min_scores_kernel import work as k1_work
 
 #: term-group buckets the FD route takes (the planner caps FD at 8 groups)
 KERNEL_T = (4, 8)
@@ -91,6 +93,28 @@ def fd_scores_plain(g_quarter, g_qsyn, cube, dead, freq_weight, counts,
     return torch.stack(ms), torch.stack(pres)
 
 
+def work(g_quarter, g_qsyn, cube, dead, counts, tail=None
+         ) -> tuple[int, float]:
+    """(bytes, fp32 operations) K2 must spend on these inputs. Bytes:
+    each distinct quarter row the wave gathers read once (4 slots of D
+    words: padded groups and the quarters a term leaves empty all point
+    at the one zero slot), the tail when there is one, the dead mask, the
+    small per-query arrays, and min_score and the bitmask written once.
+    Operations: K1's count (:func:`min_scores_kernel.work`) over each
+    query's assembled cube."""
+    B, TQ = g_quarter.shape
+    T, D = TQ // 4, dead.shape[0]
+    n_quarters = int(torch.unique(g_quarter).numel())
+    nbytes = (n_quarters * 4 * D * 4
+              + (tail.numel() * 4 if tail is not None else 0)
+              + D + B * TQ * 8 + B * T * 5 + B * D * 8)
+    ops = 0.0
+    for b in range(B):
+        c = assemble(g_quarter, g_qsyn, cube, dead, tail, b)
+        ops += k1_work(c, counts[b])[1]
+    return nbytes, ops
+
+
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -117,11 +141,14 @@ def fd_scores(g_quarter: torch.Tensor, g_qsyn: torch.Tensor,
     This wrapper alone decides where the route scores: CPU tensors take
     :func:`fd_scores_plain`; CUDA tensors launch the kernel on the
     current stream, and a device, type, shape or launch the kernel does
-    not take raises."""
+    not take raises. With devwatch on, each call is a dispatch of the
+    ``fd_scores`` roofline entry of its ``(B, T, D, tail)``."""
     global launches_tail, launches_notail
     if cube.device.type == "cpu":
-        return fd_scores_plain(g_quarter, g_qsyn, cube, dead, freq_weight,
-                               counts, tail)
+        out = fd_scores_plain(g_quarter, g_qsyn, cube, dead, freq_weight,
+                              counts, tail)
+        _note_cost(g_quarter, g_qsyn, cube, dead, counts, tail)
+        return out
     if cube.device.type != "cuda":
         raise ValueError(f"fd_scores: unsupported device {cube.device}")
     B, TQ = g_quarter.shape
@@ -159,4 +186,16 @@ def fd_scores(g_quarter: torch.Tensor, g_qsyn: torch.Tensor,
         launches_tail += 1
     else:
         launches_notail += 1
+    _note_cost(g_quarter, g_qsyn, cube, dead, counts, tail)
     return ms, pres
+
+
+def _note_cost(g_quarter, g_qsyn, cube, dead, counts, tail) -> None:
+    if devwatch.g_devwatch.enabled:
+        B, TQ = g_quarter.shape
+
+        def cost():
+            nbytes, ops = work(g_quarter, g_qsyn, cube, dead, counts, tail)
+            return {"flops": ops, "bytes accessed": nbytes}
+        devwatch.note_cost("fd_scores", (B, TQ // 4, dead.shape[0],
+                                         int(tail is not None)), cost)

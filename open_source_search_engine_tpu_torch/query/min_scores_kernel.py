@@ -19,6 +19,9 @@ single-term top-``MAX_TOP`` sums, the P×P pair cross products within
   kernel or raises — nothing falls back. Payload validity is "payload ≠
   0", the build-side invariant (every real posting has densityrank ≥ 1
   or a non-body hashgroup).
+* :func:`work` counts the bytes the chain must move and the fp32
+  operations it must do on given inputs: the roofline of ``devwatch``
+  and the chip smoke test's bound both read it.
 * The kernel builds at first use with ``nvcc`` into
   ``build/torch_kernels/`` at the repository root (rebuilt when the
   source changes) and is bound through ``ctypes`` (:mod:`.cuda_build`).
@@ -31,6 +34,7 @@ import ctypes
 import torch
 
 from ..index.posdb import HASHGROUP_END, HASHGROUP_INLINKTEXT
+from ..utils import devwatch
 from . import cuda_build, devcheck, weights
 from .packer import _HG_SHIFT, _DEN_SHIFT, _SPAM_SHIFT, _SYN_SHIFT
 
@@ -177,6 +181,34 @@ def min_scores_plain(cube: torch.Tensor, pvalid: torch.Tensor,
                                   device=cube.device))
 
 
+def work(cube: torch.Tensor, counts: torch.Tensor) -> tuple[int, float]:
+    """(bytes, fp32 operations) the chain must spend on one query's
+    ``[T, P, D]`` cube or a wave's ``[B, T, P, D]``, counted from what
+    these inputs need. Bytes: the cube rows of the counted groups (no
+    slot of a group outside the min is read: a padding group, a
+    negative), freq_weight and counts read once, min_score written once.
+    Operations: 6 per valid slot of a counted term (weights, squared
+    score), 330 per present counted term-doc (the top-10 knock-out over
+    32 candidates and its sum), and 15 per valid position pair of a
+    counted term pair within MAX_PAIR_SPAN (distance rules, product, one
+    division, max). Every partial count is an integer below 2^53, so the
+    float64 sums are exact in any order."""
+    if cube.dim() == 3:
+        cube, counts = cube[None], counts[None]
+    B, T, P, D = cube.shape
+    nbytes = int(counts.sum()) * P * D * 4 + B * (T * 4 + T + D * 4)
+    nv = (cube != 0).sum(dim=2).to(torch.float64)          # [B, T, D]
+    live = counts[:, :, None] & (nv > 0)
+    nv = torch.where(live, nv, torch.zeros_like(nv))
+    pair_evals = torch.zeros((), dtype=torch.float64, device=cube.device)
+    for i in range(T):
+        j1 = min(i + 1 + MAX_PAIR_SPAN, T)
+        if j1 > i + 1:
+            pair_evals = pair_evals + (nv[:, i:i + 1] * nv[:, i + 1:j1]).sum()
+    ops = 6 * nv.sum() + 330 * live.sum() + 15 * pair_evals
+    return nbytes, float(ops)
+
+
 # --------------------------------------------------------------- kernel
 
 def build():
@@ -203,7 +235,8 @@ def min_scores_fused(cube: torch.Tensor, freq_weight: torch.Tensor,
     one launch of the kernel on the current stream, whatever B; any other
     device, a shape or type the kernel does not take, or a refused launch
     raises. With the device guardrails on (``devcheck``), the cube's
-    payloads are checked first."""
+    payloads are checked first. With devwatch on, each call is a
+    dispatch of the ``min_scores`` roofline entry of its shape."""
     global launches
     if devcheck.enabled():
         cube = devcheck.apply_cube_fault(cube)
@@ -212,10 +245,13 @@ def min_scores_fused(cube: torch.Tensor, freq_weight: torch.Tensor,
     if cube.device.type == "cpu":
         pv = cube != 0 if pvalid is None else pvalid
         if not batched:
-            return min_scores_plain(cube, pv, freq_weight, counts)
-        return torch.stack([
-            min_scores_plain(cube[b], pv[b], freq_weight[b], counts[b])
-            for b in range(cube.shape[0])])
+            out = min_scores_plain(cube, pv, freq_weight, counts)
+        else:
+            out = torch.stack([
+                min_scores_plain(cube[b], pv[b], freq_weight[b], counts[b])
+                for b in range(cube.shape[0])])
+        _note_cost(cube, counts)
+        return out
     if cube.device.type != "cuda":
         raise ValueError(f"min_scores_fused: unsupported device {cube.device}")
     if cube.dim() not in (3, 4):
@@ -244,4 +280,17 @@ def min_scores_fused(cube: torch.Tensor, freq_weight: torch.Tensor,
         raise RuntimeError(f"min_scores kernel launch failed: CUDA error "
                            f"{rc}")
     launches += 1
+    _note_cost(cube, counts)
     return out
+
+
+def _note_cost(cube: torch.Tensor, counts: torch.Tensor) -> None:
+    """One dispatch of the ``min_scores`` roofline entry keyed by the
+    cube's ``(B, T, P, D)``; the work is counted at the shape's first."""
+    if devwatch.g_devwatch.enabled:
+        shape = tuple(cube.shape) if cube.dim() == 4 else (1, *cube.shape)
+
+        def cost():
+            nbytes, ops = work(cube, counts)
+            return {"flops": ops, "bytes accessed": nbytes}
+        devwatch.note_cost("min_scores", shape, cost)

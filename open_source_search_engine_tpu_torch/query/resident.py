@@ -29,16 +29,19 @@ queued wave still reads.
 
 The loop is generic over any index with ``issue_batch(plans, topk,
 lang) → pending``, ``collect_batch(pending)`` and ``_built_version``.
-Not carried: the reference's ``devwatch.wave_*`` flight-recorder calls
-(the telemetry plane).
+With devwatch on, each wave is a flight-recorder record (``wave_begin``
+before the issue, ``wave_issued``, ``wave_collect`` around the collect
+whose rounds the index notes, ``wave_end``).
 """
 
 from __future__ import annotations
 
+import traceback
 from collections import deque
 from typing import Callable
 
 from ..utils import deadline as deadline_mod
+from ..utils import devwatch
 from ..utils import threads as _threads
 from ..utils.chaos import g_chaos
 from ..utils.lockcheck import make_condition, make_event
@@ -89,6 +92,10 @@ class Ticket:
         self._ev.set()
 
     def _fail(self, err: BaseException) -> None:
+        # the frames that have returned let go of their locals (the
+        # wave's tensors, its index) and keep their file and line; the
+        # frame that caught the error drops its wave itself
+        traceback.clear_frames(err.__traceback__)
         self._err = err
         self._ev.set()
 
@@ -98,19 +105,27 @@ class Ticket:
         if not self._ev.wait(timeout):
             raise TimeoutError("resident loop ticket timed out")
         if self._err is not None:
-            raise self._err
+            try:
+                raise self._err
+            finally:
+                # raising put this frame in the error's traceback: with
+                # the ticket out of it, the ticket (which keeps the
+                # error) makes no cycle with it
+                self = None  # noqa: PLW0642
         return self._res
 
 
 class _Wave:
     """An issued but uncollected batch and the tickets riding it."""
 
-    __slots__ = ("pending", "tickets", "di")
+    __slots__ = ("pending", "tickets", "di", "obs")
 
-    def __init__(self, pending, tickets, di):
+    def __init__(self, pending, tickets, di, obs=None):
         self.pending = pending
         self.tickets = tickets
         self.di = di
+        #: the flight recorder's open record (None with devwatch off)
+        self.obs = obs
 
 
 class ResidentLoop:
@@ -269,31 +284,48 @@ class ResidentLoop:
             return
         if g_chaos.enabled:
             g_chaos.resident_fault("issue")
+        obs = devwatch.wave_begin("resident", coll=self.name,
+                                  tickets=len(batch),
+                                  queue=len(self._queue))
         try:
             di = self._index_for_issue()
             plans = [p for t in batch for p in t.plans]
             pending = di.issue_batch(plans, topk=batch[0].topk,
                                      lang=batch[0].lang)
+            devwatch.wave_issued(obs, plans=len(plans),
+                                 generation=di._built_version)
             for t in batch:
                 t.di = di
                 t.generation = di._built_version
-            self._inflight.append(_Wave(pending, batch, di))
+            self._inflight.append(_Wave(pending, batch, di, obs))
             self.waves_issued += 1
             g_stats.count("resident.issue")
         except Exception as exc:  # noqa: BLE001 — fail the wave, not the loop
+            devwatch.wave_end(obs, error=type(exc).__name__)
             for t in batch:
                 t._fail(exc)
+        finally:
+            # a failed wave's error keeps this frame in its traceback:
+            # without the tickets and the index in it, the tickets (which
+            # keep the error) make no cycle with it
+            batch = live = t = di = plans = pending = None
 
     def _collect_one(self) -> None:
         wave = self._inflight.popleft()
         try:
             if g_chaos.enabled:
                 g_chaos.resident_fault("collect")
+            devwatch.wave_collect(wave.obs)
             results = wave.di.collect_batch(wave.pending)
             off = 0
             for t in wave.tickets:
                 t._resolve(results[off:off + len(t.plans)])
                 off += len(t.plans)
+            devwatch.wave_end(wave.obs)
         except Exception as exc:  # noqa: BLE001 — fail the wave, not the loop
+            devwatch.wave_end(wave.obs, error=type(exc).__name__)
             for t in wave.tickets:
                 t._fail(exc)
+        finally:
+            # as in ``_issue_one``: this frame lets go of the wave
+            wave = t = results = None

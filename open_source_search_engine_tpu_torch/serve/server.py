@@ -24,6 +24,15 @@ Endpoints (the reference's query-string names: ``q``, ``n``, ``s``,
 * ``GET /metrics`` and ``/admin``, ``/admin/stats``, ``/admin/mem``,
   ``/admin/cache``, ``/admin/parms``, ``/admin/admission``,
   ``/admin/tenants``, ``/admin/traces``
+* the telemetry pages: ``/admin/jit`` (jitwatch), ``/admin/hbm`` and
+  ``/admin/device`` (devwatch's ledger, flight recorder and roofline),
+  ``/admin/profiler`` (stage timings; ``?sample=start|stop|reset|report``
+  drives the sampling profiler) and ``/admin/graph`` (the statsdb sample
+  ring as SVG). Every 10 s the statsdb sampler adds qps, p50 and the
+  guardrail counters to the sample ring and qps and the counters to
+  ``statsdb.jsonl`` beside the collections (the reference's lines; the
+  file is a ring, rotated at 512 writes; a torn line costs one sample
+  when a restart reads it back), and runs the SLO evaluation.
 * ``GET /`` — a minimal search form
 
 With ``sharded=`` (a :class:`~..parallel.sharded.ShardedCollection`)
@@ -59,14 +68,8 @@ Departures from the reference:
 * **A listen backlog of 128** (:class:`NodeHTTPServer`), not
   socketserver's 5: with 5, a burst of concurrent new connections has
   its SYNs dropped and those clients wait a second to retry.
-* **Left out, each answering 501 with the ROADMAP item that carries
-  it** (:data:`NOT_PORTED`): ``/crawlbot`` and the spider, the
-  telemetry pages (``/admin/jit``, ``/admin/hbm``, ``/admin/device``,
-  ``/admin/profiler``, ``/admin/graph``) with the statsdb sample ring
-  (its SLO evaluation is kept, as the server's SLO tick, and the perf
-  page's sparklines with it). ``/metrics`` and ``/admin/perf`` have no
-  devwatch or jitwatch families (``/admin/perf``'s ``hbm`` row reports
-  devwatch off).
+* **Left out, answering 501 with the ROADMAP item that carries it**
+  (:data:`NOT_PORTED`): ``/crawlbot`` and the spider.
 """
 
 from __future__ import annotations
@@ -88,6 +91,7 @@ from ..query import devcheck, engine
 from ..query.summary import highlight
 from ..utils import chaos as chaos_mod
 from ..utils import deadline as deadline_mod
+from ..utils import devwatch, jitwatch
 from ..utils import parms as parms_mod
 from ..utils import priority as priority_mod
 from ..utils import threads
@@ -97,6 +101,7 @@ from ..utils.log import get_logger
 from ..utils.membudget import g_membudget
 from ..utils.nice import NicenessGate
 from ..utils.parms import Conf
+from ..utils.profiler import g_profiler
 from ..utils.slo import g_slo
 from ..utils.stats import _bucket_bounds, g_stats, merge_wire
 from ..utils.trace import g_tracer
@@ -109,11 +114,6 @@ log = get_logger("http")
 #: path → the ROADMAP queue item that carries it; each answers 501
 NOT_PORTED = {
     "/crawlbot": "item 6 (the spider and crawlbot)",
-    "/admin/jit": "item 5 (telemetry: jitwatch)",
-    "/admin/hbm": "item 5 (telemetry: devwatch)",
-    "/admin/device": "item 5 (telemetry: devwatch)",
-    "/admin/profiler": "item 5 (telemetry: the sampling profiler)",
-    "/admin/graph": "item 5 (telemetry: the statsdb sampler)",
 }
 
 
@@ -404,10 +404,12 @@ class SearchHTTPServer:
                       "gets": 0, "errors": 0, "auth_denied": 0}
         self._httpd: NodeHTTPServer | None = None
         self._thread: threading.Thread | None = None
-        #: the SLO tick (the statsdb sampler's evaluation, without the
-        #: sample ring it also writes)
-        self._slo_thread: threading.Thread | None = None
-        self._stop_ticks = threading.Event()
+        #: statsdb persistence (reference Statsdb: an on-disk ring of
+        #: timestamped metric samples behind the PagePerf graphs); its
+        #: sampler's tick also evaluates the SLOs
+        self._statsdb_path = Path(base_dir) / "statsdb.jsonl"
+        self._sampler: threading.Thread | None = None
+        self._stop_sampling = threading.Event()
         # the Rdbs, memtables and caches are single-writer structures:
         # the threaded accept plane serializes at this lock
         self._lock = make_rlock("server.core")
@@ -604,6 +606,10 @@ class SearchHTTPServer:
                                         f"{NOT_PORTED[path]}"})
         if path in ("/admin", "/admin/"):
             return 200, self._page_admin_index(query), "text/html"
+        if path == "/admin/profiler":
+            return self._page_profiler(query)
+        if path == "/admin/graph":
+            return 200, self._page_graph(), "image/svg+xml"
         if path == "/admin/stats":
             stats = dict(self.stats)
             # runs quarantined as corrupt (on open or by a scrub), per
@@ -640,6 +646,12 @@ class SearchHTTPServer:
             return self._page_perf(query)
         if path == "/admin/transport":
             return self._page_transport(query)
+        if path == "/admin/jit":
+            return self._page_jit(query)
+        if path == "/admin/hbm":
+            return self._page_hbm(query)
+        if path == "/admin/device":
+            return self._page_device(query)
         return _json(404, {"error": "no such page"})
 
     def _coll(self, query: dict):
@@ -981,9 +993,10 @@ class SearchHTTPServer:
         sfx = f"?pwd={urllib.parse.quote(pwd)}" if pwd else ""
         links = "".join(
             f'<li><a href="/admin/{p}{sfx}">{p}</a></li>'
-            for p in ("stats", "mem", "cache", "traces", "parms",
-                      "admission", "tenants", "perf", "transport",
-                      "hosts")) \
+            for p in ("stats", "hosts", "perf", "mem", "transport",
+                      "cache", "traces", "parms", "jit", "hbm",
+                      "device", "admission", "tenants", "profiler",
+                      "graph")) \
             + '<li><a href="/metrics">metrics</a></li>'
         rows = "".join(f"<tr><td>{k}</td><td>{v}</td></tr>"
                        for k, v in self.stats.items())
@@ -1234,14 +1247,15 @@ class SearchHTTPServer:
                 "hint": ("a shard hit the 2^31 stored-postings pack limit "
                          "(build.postings_overflow): split the collection "
                          "across more shards before the node boot-loops")})
-        # the device memory row: devwatch's HBM ledger is not ported
-        # (ROADMAP item 5), so the ledger is off and the row carries the
-        # allocator's bytes of this process
-        import torch
-        hbm = {"enabled": False, "ledger_bytes": 0,
-               "bytes_in_use": (torch.cuda.memory_allocated()
-                                if torch.cuda.is_available() else None),
-               "headroom": None}
+        # the HBM row: the ledger's total beside what the first card's
+        # allocator holds and its free bytes (nulls on the CPU or with
+        # devwatch off: the row still renders)
+        rec = devwatch.reconcile()
+        dev0 = rec["devices"][0] if rec["devices"] else {}
+        hbm = {"enabled": devwatch.enabled(),
+               "ledger_bytes": rec["ledger_bytes"],
+               "bytes_in_use": dev0.get("bytes_in_use"),
+               "headroom": dev0.get("headroom")}
         if query.get("format") == "json":
             return _json(200, {
                 "hosts": {
@@ -1290,6 +1304,25 @@ class SearchHTTPServer:
                 f"<td>{d['p99_ms']:.2f}{ex}</td>"
                 f"<td>{d['max_ms']:.2f}</td></tr>")
         hdr = "".join(f"<th>{html_mod.escape(a)} p99</th>" for a in addrs)
+
+        def spark(metric: str, color: str) -> str:
+            pts = [(t, m.get(metric))
+                   for t, m in g_stats.series(last_s=600)
+                   if m.get(metric) is not None]
+            if len(pts) < 2:
+                return ""
+            t0, t1 = pts[0][0], pts[-1][0]
+            span = max(t1 - t0, 1.0)
+            top = max(v for _, v in pts) or 1.0
+            xy = " ".join(f"{(t - t0) / span * 120:.1f},"
+                          f"{28.0 - v / top * 24.0:.1f}"
+                          for t, v in pts)
+            return (f'<svg xmlns="http://www.w3.org/2000/svg" '
+                    f'width="124" height="30">'
+                    f'<polyline fill="none" stroke="{color}" '
+                    f'points="{xy}"/></svg> {metric} (max {top:g})')
+
+        lsfx = f"?pwd={urllib.parse.quote(pwd)}" if pwd else ""
         slo_rows = "".join(
             f"<tr><td>{n}</td><td>{st['kind']}</td><td>{st['target']}</td>"
             f"<td>{st['window_total']}</td><td>{st['window_bad']}</td>"
@@ -1314,6 +1347,16 @@ class SearchHTTPServer:
             f"<p>{up}/{len(hosts)} hosts scraped &middot; "
             f'<a href="/admin/perf?format=json{sfx}">json</a> &middot; '
             f'<a href="/metrics">metrics</a></p>'
+            f"<p>HBM: ledger {hbm['ledger_bytes'] >> 20} MB &middot; "
+            f"in use {hbm['bytes_in_use'] if hbm['bytes_in_use'] is not None else 'n/a'}"
+            f" &middot; headroom "
+            f"{hbm['headroom'] if hbm['headroom'] is not None else 'n/a'}"
+            f" &middot; devwatch "
+            f"{'on' if hbm['enabled'] else 'off'} &middot; "
+            f'<a href="/admin/hbm{lsfx}">hbm</a> '
+            f'<a href="/admin/device{lsfx}">device</a></p>'
+            f"<p>{spark('qps', '#1f77b4')}<br>"
+            f"{spark('p50_ms', '#d62728')}</p>"
             f"<h2>latencies (ms)</h2>"
             f"<table border=1><tr><th>metric</th>{hdr}"
             "<th>fleet n</th><th>avg</th><th>p50</th><th>p99</th>"
@@ -1391,9 +1434,303 @@ class SearchHTTPServer:
         lines.append("# TYPE osse_gauge gauge")
         lines.extend(f'osse_gauge{{name="{k}"}} {v:g}'
                      for k, v in sorted(fleet["gauges"].items()))
+        # per-(collection, plane) device residency from the HBM ledger
+        # (OSSE_DEVWATCH=1; no rows when off)
+        lines.append("# TYPE osse_hbm_bytes gauge")
+        for c, planes in sorted(
+                devwatch.g_devwatch.ledger_snapshot().items()):
+            for p, cols in sorted(planes.items()):
+                lines.append(f'osse_hbm_bytes{{collection="{c}",'
+                             f'plane="{p}"}} {sum(cols.values())}')
         lines.append(f"osse_hosts_scraped "
                      f"{sum(1 for w in hosts.values() if w is not None)}")
         return "\n".join(lines) + "\n"
+
+    def _page_jit(self, query: dict) -> tuple[int, str, str]:
+        """Kernel-build and transfer attribution from the jit watcher
+        (OSSE_JITWATCH=1): every event keyed by (kind, function,
+        call-site), so a steady-state build or a hidden host sync names
+        its line. ``?format=json`` returns the raw snapshot."""
+        snap = jitwatch.snapshot()
+        counters = g_stats.snapshot()["counters"]
+        snap["counters"] = {k: v for k, v in sorted(counters.items())
+                            if k.startswith("jit.")}
+        if query.get("format") == "json":
+            return 200, json.dumps(snap), "application/json"
+        t = snap["totals"]
+        rows = "".join(
+            f"<tr><td>{e['kind']}</td><td>{e['fn']}</td>"
+            f"<td>{e['site']}</td><td>{e['count']}</td>"
+            f"<td>{e['bytes']}</td>"
+            f"<td>{'yes' if e['boundary'] else 'NO'}</td>"
+            f"<td>{e['shapes'] or e['last']}</td></tr>"
+            for e in snap["events"]) \
+            or "<tr><td colspan=7>none</td></tr>"
+        return 200, (
+            "<html><head><title>gb jit</title></head><body>"
+            "<h1>jit plane</h1>"
+            f"<p>watcher {'enabled' if snap['enabled'] else 'DISABLED'}"
+            f" &middot; compiles {t['compiles']}"
+            f" &middot; first traces {t['first_traces']}"
+            f" &middot; retraces {t['retraces']}"
+            f" &middot; transfers {t['transfers']}"
+            f" (off-boundary {t['transfers_offboundary']})</p>"
+            "<table border=1><tr><th>kind</th><th>fn</th><th>site</th>"
+            "<th>count</th><th>bytes</th><th>boundary</th>"
+            f"<th>detail</th></tr>{rows}</table>"
+            "</body></html>"), "text/html"
+
+    def _page_hbm(self, query: dict) -> tuple[int, str, str]:
+        """HBM ledger (OSSE_DEVWATCH=1): every registered device
+        buffer by (collection, plane, column), plane totals, and the
+        reconciliation against ``torch.cuda.memory_stats`` and
+        ``mem_get_info`` — live bytes the ledger cannot name are
+        allocator slack + unregistered temporaries (the fragmentation
+        column). ``?format=json`` returns the raw ledger."""
+        snap = devwatch.snapshot()
+        body = {k: snap[k] for k in ("enabled", "ledger", "planes",
+                                     "collections", "total_bytes",
+                                     "reconcile")}
+        if query.get("format") == "json":
+            return 200, json.dumps(body), "application/json"
+        rows = "".join(
+            f"<tr><td>{c}</td><td>{p}</td><td>{col}</td>"
+            f"<td>{n}</td></tr>"
+            for c, planes in sorted(snap["ledger"].items())
+            for p, cols in sorted(planes.items())
+            for col, n in sorted(cols.items())) \
+            or "<tr><td colspan=4>none</td></tr>"
+        dev_rows = "".join(
+            f"<tr><td>{d['device']}</td><td>{d['kind']}</td>"
+            f"<td>{d['bytes_in_use']}</td>"
+            f"<td>{d['peak_bytes_in_use']}</td>"
+            f"<td>{d['headroom']}</td>"
+            f"<td>{d['fragmentation']}</td></tr>"
+            for d in snap["reconcile"]["devices"]) \
+            or "<tr><td colspan=6>no devices</td></tr>"
+        planes = " &middot; ".join(
+            f"{p}: {n >> 20} MB"
+            for p, n in sorted(snap["planes"].items())) or "empty"
+        return 200, (
+            "<html><head><title>gb hbm</title></head><body>"
+            "<h1>HBM ledger</h1>"
+            f"<p>devwatch {'enabled' if snap['enabled'] else 'DISABLED'}"
+            f" &middot; ledger {snap['total_bytes'] >> 20} MB"
+            f" &middot; {planes}</p>"
+            "<table border=1><tr><th>collection</th><th>plane</th>"
+            f"<th>column</th><th>bytes</th></tr>{rows}</table>"
+            "<h2>memory_stats reconciliation</h2>"
+            "<table border=1><tr><th>device</th><th>kind</th>"
+            "<th>bytes_in_use</th><th>peak</th><th>headroom</th>"
+            f"<th>fragmentation</th></tr>{dev_rows}</table>"
+            "</body></html>"), "text/html"
+
+    def _page_device(self, query: dict) -> tuple[int, str, str]:
+        """Wave flight recorder + roofline attribution
+        (OSSE_DEVWATCH=1): the recorder ring's issue→wait→collect
+        waterfall with per-round escalations, and the per-(kernel,
+        shape-bucket) flops/bytes verdicts against the card's peaks.
+        ``?format=json`` returns the raw ring + cost table."""
+        snap = devwatch.snapshot()
+        body = {k: snap[k] for k in ("enabled", "totals", "waves",
+                                     "rooflines", "peaks")}
+        if query.get("format") == "json":
+            return 200, json.dumps(body), "application/json"
+        waves = list(snap["waves"])[-64:]
+        scale = max((w["total_s"] for w in waves), default=0.0) or 1e-9
+
+        def bar(w):
+            return "".join(
+                f'<div style="display:inline-block;height:10px;'
+                f'width:{max(1, int(300 * w[f] / scale))}px;'
+                f'background:{c}"></div>'
+                for f, c in (("issue_s", "#4c78a8"),
+                             ("wait_s", "#eeca3b"),
+                             ("collect_s", "#e45756")))
+        rows = "".join(
+            f"<tr><td>{w['seq']}</td><td>{w['source']}</td>"
+            f"<td>{w.get('coll', '')}</td>"
+            f"<td>{w.get('plans', w.get('tickets', ''))}</td>"
+            f"<td>{w['total_s'] * 1000:.1f}</td><td>{bar(w)}</td>"
+            f"<td>{len(w['rounds'])}</td>"
+            f"<td>{sum(r.get('escalations', 0) for r in w['rounds'])}"
+            f"</td><td>{w['error'] or ''}</td></tr>"
+            for w in reversed(waves)) \
+            or "<tr><td colspan=9>none</td></tr>"
+        roof = "".join(
+            f"<tr><td>{e['kernel']}</td><td>{e['bucket']}</td>"
+            f"<td>{e['flops']:.3g}</td><td>{e['bytes']:.3g}</td>"
+            f"<td>{e['intensity']:.2f}</td><td>{e['ridge']:.2f}</td>"
+            f"<td>{e['verdict']}</td>"
+            f"<td>{e['modeled_bytes'] or ''}</td>"
+            f"<td>{e['dispatches']}</td></tr>"
+            for e in snap["rooflines"]) \
+            or "<tr><td colspan=9>none</td></tr>"
+        pk = snap["peaks"]
+        return 200, (
+            "<html><head><title>gb device</title></head><body>"
+            "<h1>device plane</h1>"
+            f"<p>devwatch {'enabled' if snap['enabled'] else 'DISABLED'}"
+            f" &middot; waves {snap['totals']['waves']}"
+            f" &middot; rounds {snap['totals']['rounds']}"
+            f" &middot; errors {snap['totals']['wave_errors']}"
+            f" &middot; peaks {pk['label']}"
+            f" ({pk['flops']:.3g} FLOP/s, {pk['bw']:.3g} B/s"
+            f"{', assumed' if pk['assumed'] else ''})</p>"
+            "<h2>wave waterfall (issue / wait / collect)</h2>"
+            "<table border=1><tr><th>seq</th><th>source</th>"
+            "<th>coll</th><th>plans</th><th>ms</th><th>split</th>"
+            "<th>rounds</th><th>escalations</th><th>error</th></tr>"
+            f"{rows}</table>"
+            "<h2>roofline per (kernel, shape bucket)</h2>"
+            "<table border=1><tr><th>kernel</th><th>bucket</th>"
+            "<th>flops</th><th>bytes</th><th>intensity</th>"
+            "<th>ridge</th><th>verdict</th><th>modeled bytes</th>"
+            f"<th>dispatches</th></tr>{roof}</table>"
+            "</body></html>"), "text/html"
+
+    def _page_profiler(self, query: dict) -> tuple[int, str, str]:
+        """Per-stage timing table + on-demand SAMPLING profiler (the
+        two halves of the Profiler.cpp role: the message-latency stats
+        and the realtime stack sampler started/stopped from the admin
+        page — ``startRealTimeProfiler``, ``Profiler.cpp:1586``).
+
+        ``?sample=start|stop|reset`` controls the sampler;
+        ``?sample=report`` (or format=json with the sampler running)
+        returns the aggregated stack histogram."""
+        action = query.get("sample", "")
+        if action == "start":
+            g_profiler.start()
+            return 200, json.dumps({"sampling": True}), \
+                "application/json"
+        if action == "stop":
+            g_profiler.stop()
+            return 200, json.dumps(g_profiler.report()), \
+                "application/json"
+        if action == "reset":
+            g_profiler.reset()
+            return 200, json.dumps({"reset": True}), "application/json"
+        if action == "report":
+            return 200, json.dumps(g_profiler.report()), \
+                "application/json"
+        snap = g_stats.snapshot()
+        if query.get("format") == "json":
+            return 200, json.dumps(snap["latencies"]), "application/json"
+        rows = "".join(
+            f"<tr><td>{html_mod.escape(k)}</td><td>{v['count']}</td>"
+            f"<td>{v['avg_ms']:.1f}</td><td>{v['p50_ms']:.1f}</td>"
+            f"<td>{v['p99_ms']:.1f}</td><td>{v['max_ms']:.1f}</td></tr>"
+            for k, v in sorted(snap["latencies"].items()))
+        return 200, (
+            "<html><head><title>profiler</title></head><body>"
+            "<h1>stage timings (ms)</h1><table border=1>"
+            "<tr><th>stage</th><th>n</th><th>avg</th><th>p50</th>"
+            f"<th>p99</th><th>max</th></tr>{rows}</table>"
+            "</body></html>"), "text/html"
+
+    def _page_graph(self) -> str:
+        """qps/latency time-series as inline SVG (PagePerf/Statsdb
+        graphs without image deps)."""
+        series = g_stats.series(last_s=3600)
+        w, h = 600, 160
+        if not series:
+            return (f'<svg xmlns="http://www.w3.org/2000/svg" '
+                    f'width="{w}" height="{h}"><text x="10" y="20">'
+                    f"no samples yet</text></svg>")
+        t0, t1 = series[0][0], series[-1][0]
+        span = max(t1 - t0, 1.0)
+
+        def poly(metric: str, color: str) -> str:
+            pts = [(t, m.get(metric)) for t, m in series
+                   if m.get(metric) is not None]
+            if not pts:
+                return ""
+            top = max(v for _, v in pts) or 1.0
+            xy = " ".join(
+                f"{10 + (t - t0) / span * (w - 20):.1f},"
+                f"{h - 20 - v / top * (h - 40):.1f}" for t, v in pts)
+            return (f'<polyline fill="none" stroke="{color}" '
+                    f'points="{xy}"/>'
+                    f'<text x="12" y="{h - 6}" fill="{color}" '
+                    f'font-size="10">{metric} (max {top:.1f})</text>')
+        return (f'<svg xmlns="http://www.w3.org/2000/svg" width="{w}" '
+                f'height="{h}" style="background:#fff">'
+                + poly("qps", "#1f77b4") + poly("p50_ms", "#d62728")
+                + "</svg>")
+
+    # --- statsdb persistence (Statsdb.cpp sample ring) -------------------
+
+    #: the statsdb sampler's tick, which also evaluates the SLOs, so the
+    #: degrade signal the admission gate reads follows the traffic
+    SLO_TICK_S = 10.0
+
+    def _sample_loop(self) -> None:
+        self._lines_written = 0
+        last_q = self.stats["queries"]
+        last_t = time.monotonic()
+        while not self._stop_sampling.wait(self.SLO_TICK_S):
+            now = time.monotonic()
+            dq = self.stats["queries"] - last_q
+            qps = dq / max(now - last_t, 1e-9)
+            last_q, last_t = self.stats["queries"], now
+            full = g_stats.snapshot()
+            snap = full["latencies"].get("query.device_batch") or {}
+            # guardrail counters ride the same sample ring so PagePerf
+            # graphs budget pressure and check trips over time
+            rejects = full["counters"].get("membudget.reject", 0)
+            trips = full["counters"].get("devcheck.trip", 0)
+            g_stats.sample(qps=round(qps, 2),
+                           p50_ms=round(snap.get("p50_ms", 0.0), 1),
+                           budget_rejects=rejects, check_trips=trips)
+            # SLO tick: objectives consume the merged fleet stream on
+            # a coordinator, the local registry otherwise; a scrape
+            # failure costs one tick, never the sampler thread
+            try:
+                if g_slo.objectives:
+                    if self.cluster is not None:
+                        fl = self.cluster.scrape()["fleet"]
+                        g_slo.evaluate(fl["counters"],
+                                       fl["latencies"])
+                    else:
+                        g_slo.evaluate()
+            except Exception:  # noqa: BLE001 — keep sampling
+                log.exception("slo evaluation failed")
+                g_stats.count("slo.eval_errors")
+            try:
+                with open(self._statsdb_path, "a",
+                          encoding="utf-8") as fh:
+                    fh.write(json.dumps(
+                        [time.time(), {"qps": round(qps, 2),
+                                       "budget_rejects": rejects,
+                                       "check_trips": trips}]) + "\n")
+                self._lines_written += 1
+                if self._lines_written >= 512:  # it IS a ring: rotate
+                    tail = self._statsdb_path.read_text(
+                        encoding="utf-8").splitlines()[-2000:]
+                    self._statsdb_path.write_text(
+                        "\n".join(tail) + "\n", encoding="utf-8")
+                    self._lines_written = 0
+            except OSError:
+                pass
+
+    def _load_statsdb(self) -> None:
+        if not self._statsdb_path.exists():
+            return
+        try:
+            lines = self._statsdb_path.read_text(
+                encoding="utf-8", errors="replace").splitlines()[-500:]
+        except OSError:
+            return
+        # per-line tolerance: a kill-9 mid-append leaves ONE torn line;
+        # it must cost one sample, not the whole ring
+        for line in lines:
+            if not line.strip():
+                continue
+            try:
+                t, m = json.loads(line)
+                g_stats.timeseries.append((float(t), m))
+            except Exception:  # noqa: BLE001 — torn/corrupt line
+                g_stats.count("statsdb.corrupt_lines")
 
     # --- lifecycle --------------------------------------------------------
 
@@ -1401,6 +1738,8 @@ class SearchHTTPServer:
         # the traffic-plane objective, declared by default so every
         # server exports slo.query_p99.* (operators may declare richer
         # objectives before start())
+        jitwatch.maybe_enable()
+        devwatch.maybe_enable()  # OSSE_DEVWATCH=1 arms the hbm plane
         chaos_mod.maybe_enable()  # OSSE_CHAOS=<seed> arms the plane
         if not g_slo.objectives:
             g_slo.declare_latency(
@@ -1466,27 +1805,10 @@ class SearchHTTPServer:
                                      self._httpd.serve_forever)
         if not self._batcher.alive:  # a stop()/start() cycle
             self._batcher = QueryBatcher(self._run_device_batch)
-        self._stop_ticks.clear()
-        self._slo_thread = threads.spawn("slo-tick", self._slo_loop)
+        self._load_statsdb()
+        self._stop_sampling.clear()
+        self._sampler = threads.spawn("statsdb", self._sample_loop)
         log.info("http server on %s:%d", self.host, self.port)
-
-    SLO_TICK_S = 10.0
-
-    def _slo_loop(self) -> None:
-        """Evaluate the declared objectives every SLO_TICK_S, so the
-        degrade signal the admission gate reads follows the traffic; a
-        failed evaluation costs one tick."""
-        while not self._stop_ticks.wait(self.SLO_TICK_S):
-            try:
-                if self.cluster is not None:
-                    # a front end's objectives read the merged fleet
-                    fl = self.cluster.scrape()["fleet"]
-                    g_slo.evaluate(fl["counters"], fl["latencies"])
-                    continue
-                g_slo.evaluate()
-            except Exception:  # noqa: BLE001 — keep ticking
-                log.exception("slo evaluation failed")
-                g_stats.count("slo.eval_errors")
 
     def _page_hosts(self) -> str:
         """The shard map (``PageHosts.cpp``). On a cluster each node is
@@ -1521,7 +1843,7 @@ class SearchHTTPServer:
         """Stop the batcher, park every resident tenant (their records
         survive, so a restart cold-starts cleanly), stop the mesh's
         serving loop and close the socket."""
-        self._stop_ticks.set()
+        self._stop_sampling.set()
         self._batcher.stop()
         g_residency.stop_all()
         if self.sharded is not None:
@@ -1533,10 +1855,10 @@ class SearchHTTPServer:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
-        for t in (self._thread, self._slo_thread):
+        for t in (self._thread, self._sampler):
             if t is not None:
                 t.join(timeout=10)
-        self._thread = self._slo_thread = None
+        self._thread = self._sampler = None
 
 
 def serve(base_dir, host: str = "127.0.0.1", port: int = 8000,

@@ -23,9 +23,9 @@ and an always-running :class:`~..query.resident.ResidentLoop`;
   pressure parks cold tenants before anything else is shed, and host
   pressure never parks one (the device bytes are not host bytes).
 
-The reference reads the device bytes from the devwatch ledger when it is
-on; here ``resident_bytes()`` is the only source (the ledger waits for
-the telemetry plane).
+With devwatch on, a tenant's device bytes come from the HBM ledger (the
+columns every refresh registered), ``resident_bytes()`` being the
+always-on fallback; a park drops the collection's ledger slice.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import time
 from collections import deque
 
 from ..utils import deadline as deadline_mod
+from ..utils import devwatch
 from ..utils import trace as trace_mod
 from ..utils.lockcheck import make_event, make_rlock
 from ..utils.log import get_logger
@@ -180,7 +181,10 @@ class ResidencyManager:
                 lambda: engine.get_device_index(coll),
                 gen_fn=lambda: coll.posdb.version, name=name)
             coll._resident_loop = loop
-            nbytes = int(di.resident_bytes())
+            # the HBM ledger (when on) saw every column the refresh
+            # registered; resident_bytes() is the same sum from shapes
+            nbytes = int(devwatch.collection_bytes(name)
+                         or di.resident_bytes())
             with self._lock:
                 t = self._tenants.get(name)
                 if t is None:
@@ -250,6 +254,7 @@ class ResidencyManager:
             coll._resident_loop = None
             coll._device_index = None
         g_membudget.set_gauge("device", f"di:{name}", 0)
+        devwatch.drop(name)  # every plane: the columns die with the index
         g_stats.count("tenancy.park")
         log.info("parked tenant %s (%d MB device)", name, freed >> 20)
         return freed

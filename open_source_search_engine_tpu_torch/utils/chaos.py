@@ -8,6 +8,10 @@ injection point     faults
 ==================  =====================================================
 transport.request   drop / delay / refuse / blackhole a scatter leg
 cluster.node        slowwalk / wedge / kill a shard node mid-query
+rdb.read            flip a byte of an on-disk posting run, so the CRC
+                    verify or scrub must trip
+membudget.reserve   force a pressure pass, so caches shed before work
+                    is refused
 resident.loop       stall an issue or a collect / drop a collect
 fleet               a real signal to a spawned node process: kill
                     (SIGKILL) / wedge (SIGSTOP)
@@ -18,8 +22,7 @@ Arming: ``OSSE_CHAOS=<seed>`` (``OSSE_CHAOS_RATE`` the rate) through
 hot path pays one attribute read (``g_chaos.enabled``). A decision is a
 pure function of (seed, point, per-point call index) through sha256, so
 a seed replays the same fault schedule whatever the threads do. Every
-fired fault counts under ``chaos.<point>.<kind>``. The Rdb and membudget
-points wait for the telemetry plane (ROADMAP item 5).
+fired fault counts under ``chaos.<point>.<kind>``.
 """
 
 from __future__ import annotations
@@ -45,6 +48,8 @@ class ChaosError(RuntimeError):
 DEFAULT_POINTS: dict[str, tuple[str, ...]] = {
     "transport.request": ("drop", "delay", "refuse", "blackhole"),
     "cluster.node": ("slowwalk", "wedge", "kill"),
+    "rdb.read": ("flipbyte",),
+    "membudget.reserve": ("pressure",),
     "resident.loop": ("stall", "drop_collect"),
     "fleet": ("kill", "wedge"),
 }
@@ -188,6 +193,41 @@ class ChaosPlane:
         threads.spawn("chaos-kill", node.stop)
         time.sleep(p.delay_s * 10.0)
         raise ChaosError("chaos: node killed mid-query")
+
+    def rdb_fault(self, rdb) -> None:
+        """rdb.read: corrupt one on-disk run, so the CRC planes (load
+        verify, scrub) must trip before those bytes are trusted again."""
+        if self.decide("rdb.read",
+                       key=getattr(rdb, "name", "")) == "flipbyte":
+            self.corrupt_one_run(rdb)
+
+    def corrupt_one_run(self, rdb) -> str | None:
+        """Flip one byte of one loaded run on disk (a deterministic pick
+        from the seed). Returns the path touched, or None when the rdb
+        has no on-disk run. Noticing is the scrub and verify planes'
+        job, not this one's."""
+        runs = [r for r in getattr(rdb, "runs", [])
+                if getattr(r, "path", None) is not None]
+        if not runs:
+            return None
+        h = hashlib.sha256(
+            f"{self.seed}:flip:{len(runs)}".encode()).digest()
+        run = runs[int.from_bytes(h[:4], "big") % len(runs)]
+        fname = "data.npy" if run.data is not None else "keys.npy"
+        target = run.path / fname
+        size = os.path.getsize(target)
+        if size < 256:
+            return None
+        # past the .npy header: flip mid-payload
+        off = 192 + int.from_bytes(h[4:8], "big") % (size - 256)
+        with open(target, "r+b") as f:
+            f.seek(off)
+            b = f.read(1)
+            f.seek(off)
+            f.write(bytes([b[0] ^ 0xFF]))
+        g_stats.count("chaos.rdb.corrupted")
+        log.info("chaos: flipped byte %d of %s", off, target)
+        return str(target)
 
     def fleet_fault(self, pid: int, key: str = "") -> str | None:
         """fleet: a real signal to a spawned node process — ``kill`` is

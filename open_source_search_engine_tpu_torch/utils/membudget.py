@@ -33,10 +33,7 @@ always spent: every memtable dumped early and a merge's reservation
 parked the serving tenant. Here the labels of :data:`DEVICE_LABELS` are
 bounded by their own cap only (``device_budget``); the host limit, the
 free bytes and the high water count host labels, and a pressure handler
-registered for the device label runs only in a device relief pass. Not
-carried: the
-reference's chaos-forced pressure in ``reserve`` and ``reserving()``
-(no caller yet).
+registered for the device label runs only in a device relief pass.
 """
 
 from __future__ import annotations
@@ -211,6 +208,12 @@ class MemBudget:
             return True
 
         on_host = label not in DEVICE_LABELS
+        from .chaos import g_chaos
+        if g_chaos.enabled and \
+                g_chaos.decide("membudget.reserve", key=label):
+            # forced pressure: the shed-before-refuse path runs even
+            # when the reservation would have fit
+            self._relieve(nbytes, label=None if on_host else label)
 
         def _fits_locked() -> bool:
             if on_host and self._used_locked() + nbytes > self.limit:

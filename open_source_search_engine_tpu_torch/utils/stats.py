@@ -1,8 +1,8 @@
 """Metrics — counters, mergeable latency histograms and gauges.
 
-A copy of ``open_source_search_engine_tpu/utils/stats.py`` without the
-time-series ring the statsdb sampler fills (the sampler is not ported);
-the port imports nothing of that package.
+A copy of ``open_source_search_engine_tpu/utils/stats.py`` (the port
+imports nothing of that package), with the per-second sample ring the
+server's statsdb sampler fills and ``/admin/graph`` draws.
 
 Reference: ``Stats.cpp/h`` (in-RAM per-message latency stats drawn on
 PagePerf, ``Stats.h:38`` ``addStat_r``) + ``Statsdb`` (an actual Rdb of
@@ -27,6 +27,8 @@ from __future__ import annotations
 
 import math
 import threading
+import time
+from collections import deque
 
 # Log-linear bucket geometry. Major bucket = binary exponent of the
 # value in ms, clamped to [_E_MIN, _E_MAX]; each major bucket splits
@@ -191,7 +193,7 @@ class LatencyStat:
 class Stats:
     """Process-wide metrics registry (``g_stats`` equivalent)."""
 
-    def __init__(self):
+    def __init__(self, timeseries_window: int = 600):
         self._lock = threading.Lock()
         self.counters: dict[str, int] = {}
         self.latencies: dict[str, LatencyStat] = {}
@@ -199,6 +201,8 @@ class Stats:
         #: the PagePerf gauge row; counters monotonically grow, gauges
         #: overwrite)
         self.gauges: dict[str, float] = {}
+        #: per-second samples: (epoch_s, {metric: value}) ring
+        self.timeseries: deque = deque(maxlen=timeseries_window)
 
     def count(self, name: str, n: int = 1) -> None:
         with self._lock:
@@ -213,6 +217,11 @@ class Stats:
         with self._lock:
             self.latencies.setdefault(name, LatencyStat()).add(
                 ms, exemplar=exemplar)
+
+    def sample(self, **metrics: float) -> None:
+        """Append a Statsdb-style timestamped sample row."""
+        with self._lock:
+            self.timeseries.append((time.time(), dict(metrics)))
 
     def reset(self) -> None:
         """Zero counters + latency histograms (bench/test isolation).
@@ -243,6 +252,8 @@ class Stats:
                 "latencies": {k: v.to_wire()
                               for k, v in self.latencies.items()},
                 "gauges": dict(self.gauges),
+                "timeseries": [(t, dict(m))
+                               for t, m in list(self.timeseries)[-60:]],
             }
 
     def prefixed(self, prefix: str) -> dict:
@@ -258,6 +269,11 @@ class Stats:
                 "gauges": {k: v for k, v in self.gauges.items()
                            if k.startswith(prefix)},
             }
+
+    def series(self, last_s: float = 600.0) -> list:
+        cutoff = time.time() - last_s
+        with self._lock:
+            return [(t, m) for t, m in self.timeseries if t >= cutoff]
 
 
 def merge_wire(parts: list[dict]) -> dict:

@@ -264,11 +264,15 @@ def test_cluster_argument_serves_as_the_reference(clusters, tmp_path):
         tm, jm = (s.handle("GET", "/metrics", {}, b"")[1] for s in (t, j))
         fams = [{ln.split()[2] for ln in m.splitlines()
                  if ln.startswith("# TYPE")} for m in (tm, jm)]
-        # the HBM ledger family waits for devwatch (ROADMAP item 5)
-        assert fams[0] == fams[1] - {"osse_hbm_bytes"}
+        assert fams[0] == fams[1]
         for m in (tm, jm):
             assert f"osse_hosts_scraped {N_SHARDS}" in m
-        assert t.handle("GET", "/admin/jit", {}, b"")[0] == 501
+        # the telemetry pages answer a cluster front end as the
+        # reference's does
+        tjit, jjit = (json.loads(s.handle("GET", "/admin/jit",
+                                          {"format": "json"}, b"")[1])
+                      for s in (t, j))
+        assert sorted(tjit) == sorted(jjit)
     finally:
         t.stop()
         jax_gc.release(j)

@@ -6,6 +6,7 @@ The import check runs in a subprocess: this session's conftest has
 already imported jax."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -249,3 +250,110 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                          env=_clean_env(), timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+_TELEMETRY_PROBE = """
+import importlib.abc, json, sys, tempfile
+sys.path.insert(0, {root!r})
+
+
+class NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "open_source_search_engine_tpu"):
+            raise ImportError(f"{{name}} is blocked in this probe")
+        return None
+
+
+sys.meta_path.insert(0, NoJax())
+from open_source_search_engine_tpu_torch.build import docproc
+from open_source_search_engine_tpu_torch.serve.server import SearchHTTPServer
+from open_source_search_engine_tpu_torch.serve.tenancy import g_residency
+from open_source_search_engine_tpu_torch.utils import (
+    chaos, devdoctor, devwatch, jitwatch, lockcheck, profiler)
+assert devwatch.enabled() and jitwatch.enabled() and lockcheck.ENABLED
+srv = SearchHTTPServer(tempfile.mkdtemp(), port=0, device="cpu")
+c = srv.colldb.get("main")
+docproc.index_document(c, "http://t.test/", "<p>telemetry words</p>")
+srv.start()
+assert srv.handle("GET", "/search", dict(q="telemetry"), b"")[0] == 200
+for path in ("/admin/hbm", "/admin/device", "/admin/jit",
+             "/admin/profiler", "/admin/graph"):
+    assert srv.handle("GET", path, {{}}, b"")[0] == 200, path
+assert devwatch.snapshot()["totals"]["waves"] >= 1
+assert jitwatch.snapshot()["totals"]["transfers"] >= 1
+assert devdoctor.probe()["status"] == "no-accelerator"
+srv.stop()
+g_residency.reset()
+assert lockcheck.g_lockcheck.report()["cycles"] == []
+print("ISOLATED")
+"""
+
+
+def test_telemetry_planes_run_with_no_jax_importable(tmp_path):
+    env = _clean_env()
+    env.update(OSSE_DEVWATCH="1", OSSE_JITWATCH="1", OSSE_LOCKCHECK="1")
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    out = subprocess.run(
+        [sys.executable, "-c", _TELEMETRY_PROBE.format(root=str(ROOT))],
+        capture_output=True, text=True, cwd=tmp_path, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "ISOLATED" in out.stdout
+
+
+_DOCTOR_PROBE = """
+import importlib.abc, runpy, sys
+sys.path.insert(0, {root!r})
+
+
+class NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "open_source_search_engine_tpu"):
+            raise ImportError(f"{{name}} is blocked in this probe")
+        return None
+
+
+sys.meta_path.insert(0, NoJax())
+sys.argv = ["devdoctor"] + {args!r}
+runpy.run_module("open_source_search_engine_tpu_torch.utils.devdoctor",
+                 run_name="__main__")
+"""
+
+
+@pytest.mark.parametrize("visible,args,rc,verdict", [
+    (None, [], 2, "no-accelerator"),
+    ("0", [], 1, "fallback"),
+    (None, ["--expect-card"], 1, "fallback"),
+])
+def test_devdoctor_verdicts_without_a_card(tmp_path, visible, args, rc,
+                                           verdict):
+    """``python -m ...utils.devdoctor`` with no jax importable: no card
+    and none expected is ``no-accelerator`` (exit 2); a card named by
+    ``CUDA_VISIBLE_DEVICES`` or by the caller is ``fallback`` (exit 1)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = _clean_env()
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    if visible is not None:
+        env["CUDA_VISIBLE_DEVICES"] = visible
+    out = subprocess.run(
+        [sys.executable, "-c",
+         _DOCTOR_PROBE.format(root=str(ROOT), args=args)],
+        capture_output=True, text=True, cwd=tmp_path, env=env, timeout=120)
+    assert out.returncode == rc, (out.returncode, out.stderr[-2000:])
+    rec = json.loads(out.stdout)
+    assert rec["status"] == verdict and rec["cuda_available"] is False
+    assert rec["card_expected"] is (verdict == "fallback")
+
+
+def test_devdoctor_module_entry_point(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    env = _clean_env()
+    env.pop("CUDA_VISIBLE_DEVICES", None)
+    out = subprocess.run(
+        [sys.executable, "-m",
+         "open_source_search_engine_tpu_torch.utils.devdoctor"],
+        capture_output=True, text=True, cwd=ROOT, env=env, timeout=120)
+    assert out.returncode == 2 and '"no-accelerator"' in out.stdout

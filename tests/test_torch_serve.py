@@ -394,20 +394,28 @@ class TestEdge:
 
     @pytest.mark.parametrize("path", sorted(
         set(NOT_PORTED) | {"/admin/hosts", "/admin/transport",
-                           "/admin/perf"}))
+                           "/admin/perf", "/admin/jit", "/admin/hbm",
+                           "/admin/device", "/admin/profiler",
+                           "/admin/graph"}))
     def test_left_out_endpoints_answer_501(self, servers, path):
         code, body, ctype = _get(servers[1], path)
         if path not in NOT_PORTED:
             # ported since: /admin/hosts with the mesh, the reference's
             # answer; /admin/transport and /admin/perf with the cluster,
-            # the reference's status, type and JSON keys (the counters in
+            # and the telemetry pages with the telemetry plane, the
+            # reference's status, type and JSON keys (the counters in
             # them are each package's own)
             jcode, jbody, jctype = _get(servers[0], path)
             assert (code, ctype) == (jcode, jctype) and code == 200
             if path == "/admin/hosts":
                 assert json.loads(body) == json.loads(jbody)
                 return
-            tj, jj = (json.loads(_get(srv, path, format="json")[1])
+            if path == "/admin/graph":
+                assert body.startswith("<svg") and jbody.startswith("<svg")
+                return
+            q = {"sample": "report"} if path == "/admin/profiler" \
+                else {"format": "json"}
+            tj, jj = (json.loads(_get(srv, path, **q)[1])
                       for srv in (servers[1], servers[0]))
             assert sorted(tj) == sorted(jj), (sorted(tj), sorted(jj))
             return
