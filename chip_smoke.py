@@ -21,7 +21,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
 2. build every kernel of the query paths from the sources in this
    checkout, in parallel (K1: ``csrc/min_scores.cu``, K2:
    ``csrc/fd_scores.cu``), and read each instantiation's registers and
-   static shared memory from the ``-Xptxas=-v`` report;
+   static shared memory from the ``-Xptxas=-v`` report; the native host
+   core's two libraries (``native/doccore.cpp``, ``native/rdbcore.cpp``)
+   build with ``g++`` beside them;
 3. hold K1 bitwise against its plain PyTorch version on the card: random
    cubes (T in {4, 8}, P = 16, D in {1000, 1001, 1024, 65536}; T in {16,
    32, 64, 128} at D = 1000), batched waves of B = 3 at D = 1001 (rows
@@ -31,7 +33,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
    {1001, 1024, 131072}, B = 4, random resident cubes with some quarters
    on the zero slot and some docs dead;
 4. the flat path: index the synthetic benchmark corpus (N_DOCS docs)
-   through ``docproc.index_batch`` in chunks of 512, then answer
+   through ``docproc.index_batch`` in chunks of 512, through the native
+   host core (the run fails if either library did not load: no quiet
+   fall back to the Python path), with its docs/s beside the card's
+   name and power limit; then [native]: the first NATIVE_SLICE pages
+   indexed into two fresh collections, natively and through the Python
+   path (``native.get_doccore`` and ``native.available`` report no
+   library, in process), both force-merged, every Rdb's runs and the
+   titlerecs bitwise equal, both rates and merge times printed; then
+   answer
    N_QUERIES unique queries through ``engine.search`` with the kernel
    counters reset just before; every scoring pass must launch K1 and
    none may take the plain version. 4 of the queries and the long
@@ -139,10 +149,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    in process (runs verified with their CRCs, the checkpoint loaded,
    the journal replayed) answers the queries bitwise as before the save,
    its open and first batch timed; a forced daily merge of every Rdb
-   while 4 resident clients send the queries, every page equal to the
-   page before it, the merge's seconds and the seconds to the rebuilt
-   base's swap printed, and the swapped index equal to one built from
-   scratch; then a child ``serve`` node on the card takes 16 POST
+   while 4 resident clients send the queries (posdb's runs merged in one
+   call of the native core's ``merge_runs``, counted), every page equal
+   to the page before it, the merge's seconds and the seconds to the
+   rebuilt base's swap printed, and the swapped index equal to one
+   built from scratch; then a child ``serve`` node on the card takes 16 POST
    /inject, each answered 200, and is killed with SIGKILL: the restarted
    node finds each of the 16 and answers all 80 pages as before the
    kill, its spawn-to-first-page seconds printed. Every wait there has a
@@ -232,6 +243,10 @@ assert N_DOCS >= 65_536
 
 #: (5j): the most the allocator's live bytes may exceed the HBM ledger by
 ALLOC_SLACK = 1 << 30
+
+#: [native]: the first pages of the main path's corpus, indexed through
+#: both host paths
+NATIVE_SLICE = 2048
 
 
 def log(msg: str) -> None:
@@ -2037,6 +2052,7 @@ def durability(colldb, name, queries, work, reset_counts, device):
     from datetime import datetime
 
     import torch
+    from open_source_search_engine_tpu_torch import native
     from open_source_search_engine_tpu_torch.control.dailymerge import \
         DailyMerge
     from open_source_search_engine_tpu_torch.corpus import \
@@ -2169,10 +2185,21 @@ def durability(colldb, name, queries, work, reset_counts, device):
     conf.merge_quiet_hours = "0-23"
     dm = DailyMerge([coll], conf)
     refused0 = g_stats.counters.get("membudget.reject.merge", 0)
+    # the merge of every dataless Rdb (posdb among them) rides the native
+    # core's merge_runs: its calls are counted
+    merge_runs, merge_calls = native.merge_runs, []
+
+    def counted_merge(*a, **kw):
+        merge_calls.append(sum(len(k) for k in a[0]))
+        return merge_runs(*a, **kw)
+
+    posdb_keys = sum(len(r.keys) for r in coll.posdb.runs)
+    native.merge_runs = counted_merge
     t0 = time.perf_counter()
     try:
         assert dm.tick(now=datetime(2026, 1, 1, 3, 0))
         out["merge_s"] = time.perf_counter() - t0
+        native.merge_runs = merge_runs
         # the posdb run set moved (more than one run merged): the serving
         # index rebuilds its base in the background and swaps it in
         assert runs0["posdb"][0] > 1 or device != "cuda", runs0
@@ -2188,11 +2215,17 @@ def durability(colldb, name, queries, work, reset_counts, device):
             assert not errors, errors
             time.sleep(0.01)
     finally:
+        native.merge_runs = merge_runs
         stop.set()
         for t in clients:
             t.join(timeout=300)
     assert not any(t.is_alive() for t in clients), "a client hung"
     assert not errors, errors
+    out["merge_runs_calls"] = len(merge_calls)
+    out["merge_runs_keys"] = sum(merge_calls)
+    # one call took every posdb run: the forced merge itself
+    assert runs0["posdb"][0] < 2 or posdb_keys in merge_calls, (
+        posdb_keys, merge_calls[:8])
     out["merge_launches"] = launches()
     if device == "cuda":
         assert min(out["merge_launches"][:2]) > 0 and \
@@ -2208,7 +2241,9 @@ def durability(colldb, name, queries, work, reset_counts, device):
         assert a.shape == b.shape and torch.equal(a, b), cname
     del scratch, old
     log(f"[durable] daily merge (forced, every Rdb, posdb first) in "
-        f"{out['merge_s']:.2f} s while 4 resident clients served; the "
+        f"{out['merge_s']:.2f} s while 4 resident clients served "
+        f"({out['merge_runs_calls']} native merge_runs calls over "
+        f"{out['merge_runs_keys']} keys); the "
         f"rebuilt base swapped in {out['swap_s']:.2f} s after the merge "
         f"began (built from: "
         f"{out['merge_base_source']}); (runs, memtable records) before "
@@ -2275,6 +2310,95 @@ def durability(colldb, name, queries, work, reset_counts, device):
         f"before the kill")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"[durable] phase (5g) in {out['phase_s']:.1f} s")
+    return out
+
+
+def native_parity(work: Path, n_docs: int, device: str) -> dict:
+    """[native]: the first ``n_docs`` pages of ``gen_docs`` indexed twice,
+    into two fresh collections: through the native host core, and through
+    the Python path (``native.get_doccore`` and ``native.available``
+    report no library, in process). Both dump every 512 pages, so every
+    Rdb holds several runs, and both are then force-merged (natively,
+    and through the numpy merge). Every Rdb's runs (keys, and the
+    titlerecs and other payloads) must be bitwise equal between the two;
+    one fixed clock stamps both collections' pages. Returns each path's
+    docs/s and merge seconds."""
+    import types
+
+    import numpy as np
+
+    from open_source_search_engine_tpu_torch import native
+    from open_source_search_engine_tpu_torch.build import docproc
+    from open_source_search_engine_tpu_torch.corpus import gen_docs
+    from open_source_search_engine_tpu_torch.index.collection import \
+        Collection
+
+    docs = list(gen_docs(n_docs))
+    calls = {"tokenize": 0, "merge": 0}
+    tokenize, merge_runs = native.tokenize_native, native.merge_runs
+
+    def counted_tokenize(*a, **kw):
+        cols = tokenize(*a, **kw)
+        calls["tokenize"] += cols is not None
+        return cols
+
+    def counted_merge(*a, **kw):
+        calls["merge"] += 1
+        return merge_runs(*a, **kw)
+
+    saved = (docproc.time, native.get_doccore, native.available,
+             native.tokenize_native, native.merge_runs)
+    out: dict = {}
+    images: dict = {}
+    try:
+        docproc.time = types.SimpleNamespace(time=lambda: 1.7e9,
+                                             strptime=time.strptime)
+        native.tokenize_native = counted_tokenize
+        native.merge_runs = counted_merge
+        for path in ("native", "python"):
+            if path == "python":
+                native.get_doccore = lambda: None
+                native.available = lambda: False
+            calls.update(tokenize=0, merge=0)
+            coll = Collection(f"native_{path}", work / f"native_{path}",
+                              device=device)
+            t0 = time.perf_counter()
+            for i in range(0, n_docs, 512):
+                docproc.index_batch(coll, docs[i:i + 512])
+                coll.dump_all()
+            t_index = time.perf_counter() - t0
+            assert coll.num_docs == n_docs, coll.num_docs
+            runs = {n: len(r.runs) for n, r in coll.rdbs().items()}
+            t0 = time.perf_counter()
+            for rdb in coll.rdbs().values():
+                rdb.attempt_merge(force=True)
+            t_merge = time.perf_counter() - t0
+            images[path] = {
+                n: [tuple(bytes(np.ascontiguousarray(a).view(np.uint8))
+                          for a in (run.keys, run.offsets, run.data)
+                          if a is not None) for run in r.runs]
+                for n, r in coll.rdbs().items()}
+            out[path] = dict(rate=n_docs / t_index, index_s=t_index,
+                             merge_s=t_merge, runs_before=runs,
+                             tokenized=calls["tokenize"],
+                             merges=calls["merge"])
+            del coll
+    finally:
+        (docproc.time, native.get_doccore, native.available,
+         native.tokenize_native, native.merge_runs) = saved
+    # the native path tokenized every page and merged natively; the
+    # Python path did neither
+    assert out["native"]["tokenized"] == n_docs, out
+    assert out["native"]["merges"] > 0, out
+    assert out["python"]["tokenized"] == 0 == out["python"]["merges"], out
+    assert out["native"]["runs_before"]["posdb"] > 1, out
+    assert images["native"].keys() == images["python"].keys()
+    out["bytes"] = 0
+    for name, runs in images["native"].items():
+        assert len(runs) <= 1, (name, len(runs))
+        assert runs == images["python"][name], f"{name} differs"
+        out["bytes"] += sum(len(b) for run in runs for b in run)
+    out["rdbs"] = sorted(images["native"])
     return out
 
 
@@ -2346,16 +2470,22 @@ def main() -> int:
         f"device {kind!r} count {torch.cuda.device_count()} "
         f"nvidia-smi: {smi}")
 
-    # ---- 2. build: one nvcc per source, all started together ----
+    # ---- 2. build: one nvcc per source and one g++ per host library,
+    # all started together ----
     from concurrent.futures import ThreadPoolExecutor
+
+    from open_source_search_engine_tpu_torch import native
     par_msk, par_fdk = load_parent(opts.parent) if opts.parent else (None,
                                                                      None)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as ex:
+    with ThreadPoolExecutor(6) as ex:
+        host_libs = [ex.submit(native.get_doccore), ex.submit(native.get_lib)]
         builds = list(ex.map(lambda m: m.build(),
                              [m for m in (msk, fdk, par_msk, par_fdk) if m]))
+        host_libs = [f.result() for f in host_libs]
     builds = builds[:2]   # the report is this checkout's
-    log(f"[build] {', '.join(so.name for so, _ in builds)} in "
+    log(f"[build] {', '.join(so.name for so, _ in builds)}, "
+        f"{', '.join(Path(lib._name).name for lib in host_libs if lib)} in "
         f"{time.perf_counter() - t0:.1f} s")
     usage: dict = {}
     for _, report in builds:
@@ -2474,6 +2604,13 @@ def main() -> int:
     # PostQueryRerank, no site clustering (tie order decides clustering)
     coll.conf.pqr_enabled = False
     SC = dict(topk=10, with_snippets=False, site_cluster=False)
+    # the host indexes through the native core (doccore, rdbcore): no
+    # quiet fall back to the Python path on the card's host
+    if native.get_doccore() is None or native.get_lib() is None:
+        print("FAIL: the native host core did not build or load "
+              f"(doccore {native.get_doccore()}, rdbcore "
+              f"{native.get_lib()})", file=sys.stderr)
+        return 1
     t0 = time.perf_counter()
     chunk: list = []
     for doc in gen_docs(N_DOCS):
@@ -2487,10 +2624,23 @@ def main() -> int:
     t_index = time.perf_counter() - t0
     coll_rate = coll.num_docs / t_index
     log(f"[index] {coll.num_docs} docs in {t_index:.1f} s "
-        f"({coll_rate:.1f} docs/s, every page with its date fielddb "
-        f"record, every write journaled; {smi}); runs per Rdb "
+        f"({coll_rate:.1f} docs/s through the native host core, every "
+        f"page with its date fielddb record, every write journaled; "
+        f"{smi}); runs per Rdb "
         f"{ {n: r for n, (r, _) in run_counts(coll).items()} }")
     assert coll.num_docs == N_DOCS, coll.num_docs
+
+    # ---- [native]: the first NATIVE_SLICE pages through both host paths
+    nat = native_parity(work, NATIVE_SLICE, "cuda")
+    log(f"[native] the first {NATIVE_SLICE} pages of the corpus, indexed "
+        f"into two fresh collections (a dump every 512 pages) and "
+        f"force-merged: native {nat['native']['rate']:.1f} docs/s, merge "
+        f"{nat['native']['merge_s']:.3f} s ({nat['native']['merges']} "
+        f"merge_runs calls); Python path {nat['python']['rate']:.1f} "
+        f"docs/s, merge {nat['python']['merge_s']:.3f} s; runs before "
+        f"the merge {nat['native']['runs_before']}; every Rdb's run "
+        f"({', '.join(nat['rdbs'])}: {nat['bytes']} B of keys and "
+        f"payloads, titlerecs included) bitwise equal; {smi}")
 
     queries = make_queries(N_QUERIES, seed=1234)
     trace.reset()

@@ -43,6 +43,7 @@ from ..spider import linkdb as linkdb_mod
 from ..utils import ghash
 from ..utils.lang import detect_language
 from ..utils.log import get_logger
+from ..utils.membudget import g_membudget
 from ..utils.url import normalize
 from .tokenizer import _WORD_RE, TokenizedDoc, tokenize_html, tokenize_text
 
@@ -88,6 +89,12 @@ class MetaList:
 def doc_section_hashes(tdoc: TokenizedDoc) -> dict[int, int]:
     """section id → 32-bit content hash of its words (sections under
     MIN_SECTION_WORDS words are skipped)."""
+    nat = tdoc.native
+    if nat is not None:
+        return {int(p): ghash.hash64(c) & 0xFFFFFFFF
+                for p, wc, c in zip(nat.sect_hash, nat.sect_words,
+                                    nat.sect_content)
+                if wc >= MIN_SECTION_WORDS}
     by_sid: dict[int, list[str]] = {}
     for sid, w in zip(tdoc.section_ids, tdoc.words):
         if sid:
@@ -225,6 +232,7 @@ def build_meta_list(url: str, content: str, *, is_html: bool = True,
     if sect_of is None:
         sect_of = doc_section_hashes(tdoc)
     boiler = set(boiler_sections or [])
+    nat = tdoc.native
     doc_words = list(tdoc.words)
     if langid is None:
         langid = detect_language(doc_words, text=tdoc.text)
@@ -237,17 +245,21 @@ def build_meta_list(url: str, content: str, *, is_html: bool = True,
     il_wp: list[int] = []
     il_sent: list[int] = []
     il_spam: list[int] = []
+    il_den: list[int] = []
     if inlinks:
         pos0 = (max(tdoc.wordpos) if tdoc.wordpos else 0) + 100
         sent0 = (max(tdoc.sentence_ids) if tdoc.sentence_ids else 0) + 1
         for j, (text, linker_sr) in enumerate(inlinks):
             aw = [w.lower() for w in _WORD_RE.findall(text)][:64]
+            dr = min(max(posdb.MAXDENSITYRANK - (len(aw) - 1), 1),
+                     posdb.MAXDENSITYRANK)
             for i, w in enumerate(aw):
                 il_words.append(w)
                 il_wp.append(min(pos0 + i, posdb.MAXWORDPOS))
                 il_sent.append(sent0 + j)
                 il_spam.append(min(max(linker_sr, 0),
                                    posdb.MAXWORDSPAMRANK))
+                il_den.append(dr)
             pos0 += len(aw) + 100
     words = doc_words + il_words
 
@@ -255,23 +267,37 @@ def build_meta_list(url: str, content: str, *, is_html: bool = True,
         return np.concatenate([np.asarray(a, dtype=np.uint64),
                                np.asarray(b, dtype=np.uint64)])
 
-    wordpos = _cat(tdoc.wordpos, il_wp)
-    hashgroups = _cat(tdoc.hashgroups,
+    wordpos = _cat(tdoc.wordpos if nat is None else nat.wordpos, il_wp)
+    hashgroups = _cat(tdoc.hashgroups if nat is None else nat.hashgroup,
                       [posdb.HASHGROUP_INLINKTEXT] * len(il_words))
-    sentences = _cat(tdoc.sentence_ids, il_sent)
+    sentences = _cat(tdoc.sentence_ids if nat is None else nat.sentence,
+                     il_sent)
     delbit = 0 if delete else 1
     site_tid = ghash.term_id(site, prefix=SITE_PREFIX)
     content_hash = ghash.hash64(tdoc.text or content)
     chk_tid = ghash.term_id(f"{content_hash:x}", prefix=CONTENT_HASH_PREFIX)
 
     if words:
-        termids = np.array([ghash.term_id(w) for w in words],
-                           dtype=np.uint64)
-        density = _density_ranks(hashgroups, sentences)
-        doc_spam = _spam_ranks(doc_words)
+        if nat is not None:
+            # termids, density and spam of the document's and the url's
+            # words come from the native columns; the inlink block takes
+            # the same formulas per anchor
+            termids = _cat(nat.termid, [ghash.term_id(w) for w in il_words])
+            density = _cat(nat.density, il_den)
+            doc_spam = nat.spam
+        else:
+            termids = np.array([ghash.term_id(w) for w in words],
+                               dtype=np.uint64)
+            density = _density_ranks(hashgroups, sentences)
+            doc_spam = _spam_ranks(doc_words)
         if boiler:
-            bmask = np.array([sect_of.get(sid) in boiler
-                              for sid in tdoc.section_ids], dtype=bool)
+            if nat is not None:
+                bmask = np.isin(nat.sect, np.array(
+                    [p for p, ch in sect_of.items() if ch in boiler],
+                    dtype=np.uint64))
+            else:
+                bmask = np.array([sect_of.get(sid) in boiler
+                                  for sid in tdoc.section_ids], dtype=bool)
             doc_spam = np.where(bmask, np.minimum(doc_spam, BOILER_SPAMRANK),
                                 doc_spam)
         spam = _cat(doc_spam, il_spam)
@@ -280,7 +306,21 @@ def build_meta_list(url: str, content: str, *, is_html: bool = True,
         # none from url words or meta tags
         bi = np.empty(0, np.int64)
         bids = np.empty(0, np.uint64)
-        if len(words) > 1:
+        if nat is not None:
+            # the document's bigrams come from the columns; pairs within
+            # one anchor follow by the same rule
+            bi_parts = [nat.b_src]
+            bid_parts = [nat.b_termid]
+            if len(il_words) > 1:
+                ils = np.array(il_sent)
+                pair = np.nonzero(ils[1:] == ils[:-1])[0]
+                bi_parts.append(pair + len(nat.termid))
+                bid_parts.append(np.array(
+                    [ghash.bigram_id(il_words[i], il_words[i + 1])
+                     for i in pair], dtype=np.uint64))
+            bi = np.concatenate(bi_parts).astype(np.int64)
+            bids = np.concatenate(bid_parts).astype(np.uint64)
+        elif len(words) > 1:
             same_sent = sentences[1:] == sentences[:-1]
             same_hg = hashgroups[1:] == hashgroups[:-1]
             phrasable = (hashgroups[:-1] != posdb.HASHGROUP_INURL) & (
@@ -334,8 +374,9 @@ def build_meta_list(url: str, content: str, *, is_html: bool = True,
     else:
         # first heading run → the h1 title-fallback source
         h1 = ""
-        hidx = np.nonzero(np.asarray(tdoc.hashgroups, dtype=np.uint64)
-                          == posdb.HASHGROUP_HEADING)[0]
+        hg = nat.hashgroup if nat is not None else np.asarray(
+            tdoc.hashgroups, dtype=np.uint64)
+        hidx = np.nonzero(hg == posdb.HASHGROUP_HEADING)[0]
         if len(hidx):
             a = int(hidx[0])
             k = 0  # length of the contiguous first run, capped at 16
@@ -458,6 +499,31 @@ def _write(coll: Collection, metas: list[MetaList]) -> None:
     if withf:
         coll.fielddb.add(np.concatenate([ml.fielddb_keys for ml in withf]),
                          [b for ml in withf for b in ml.fielddb_blobs])
+
+
+def _write_shedding(coll: Collection, metas: list[MetaList]) -> None:
+    """:func:`_write` under the process memory budget (``docproc``
+    label): a chunk whose key images and titlerecs the budget refuses is
+    written as two halves, so the memtables can dump between them. A
+    refused single document still writes."""
+    pending = [metas]
+    while pending:
+        chunk = pending.pop(0)
+        est = (sum(int(ml.posdb_keys.nbytes) + len(ml.title_rec)
+                   for ml in chunk)
+               + 64 * len(chunk))  # the small keys (title, cluster, field)
+        granted = g_membudget.reserve("docproc", est)
+        try:
+            if not granted and len(chunk) > 1:
+                mid = len(chunk) // 2
+                log.warning("index_batch: %d-doc write over the memory "
+                            "budget, writing halves", len(chunk))
+                pending[:0] = [chunk[:mid], chunk[mid:]]
+                continue
+            _write(coll, chunk)
+        finally:
+            if granted:
+                g_membudget.release("docproc", est)
 
 
 def _prepare(coll: Collection, u, site: str, content: str, is_html: bool):
@@ -583,7 +649,7 @@ def index_batch(coll: Collection, docs, *, is_html: bool = True,
         metas.append(ml)
         out[i] = ml
     if metas:
-        _write(coll, metas)
+        _write_shedding(coll, metas)
         coll.doc_added(len(metas))
         for (i, u, url, content, site, sr), ml in zip(work, metas):
             coll.sectiondb.add_page_sections(site, u.full, ml.sections)

@@ -95,6 +95,9 @@ class TokenizedDoc:
     meta_date: str = ""
     links: list[tuple[str, str]] = field(default_factory=list)  # (href, anchor text)
     text: str = ""  # visible text, for titlerec/snippets
+    #: the native core's columns (``native.NativeDocCols``) when it
+    #: tokenized the document, else None
+    native: object = field(default=None, compare=False, repr=False)
 
     @property
     def tokens(self) -> list[Token]:
@@ -267,14 +270,41 @@ class _HtmlTok(HTMLParser):
         self._sent -= 1
 
 
+def _native_tdoc(content: str, url: str | None,
+                 is_html: bool) -> TokenizedDoc | None:
+    """The document through the native core (``native/doccore.cpp``):
+    the TokenizedDoc's lists, with the columns attached as ``.native`` so
+    that docproc hashes and ranks no word in Python. None when the
+    library is unavailable, faults, or hands the document back (an entity
+    outside its table)."""
+    from .. import native
+    try:
+        cols = native.tokenize_native(content, url, is_html)
+    except Exception:  # noqa: BLE001 — any native fault: the Python path
+        return None
+    if cols is None:
+        return None
+    return TokenizedDoc(
+        words=list(cols.words), wordpos=cols.wordpos.tolist(),
+        hashgroups=cols.hashgroup.tolist(),
+        sentence_ids=cols.sentence.tolist(),
+        section_ids=cols.sect.tolist(), title=cols.title,
+        meta_description=cols.desc, meta_date=cols.date,
+        links=list(cols.links), text=cols.text, native=cols)
+
+
 def tokenize_html(html: str, url: str | None = None) -> TokenizedDoc:
     """Tokenize an HTML document; URL path words are added to
     HASHGROUP_INURL (reference hashes the url into its own group,
-    ``XmlDoc.cpp`` ``hashUrl``). Input is NFC-normalized first
-    (UCNormalizer.cpp role) so composed and decomposed forms index as
-    one term."""
+    ``XmlDoc.cpp`` ``hashUrl``). The native core takes the document when
+    it is built (bit-identical to this Python path, which stays the
+    fallback). Input is NFC-normalized first (UCNormalizer.cpp role) so
+    composed and decomposed forms index as one term on both paths."""
     from ..utils.unicodenorm import nfc
     html = nfc(html)
+    doc = _native_tdoc(html, url, True)
+    if doc is not None:
+        return doc
     p = _HtmlTok()
     p.feed(html)
     p.close()
@@ -295,6 +325,10 @@ def tokenize_text(text: str, hashgroup: int = HASHGROUP_BODY) -> TokenizedDoc:
     converters produce plain text fed through the same path)."""
     from ..utils.unicodenorm import nfc
     text = nfc(text)
+    if hashgroup == HASHGROUP_BODY:
+        doc = _native_tdoc(text, None, False)
+        if doc is not None:
+            return doc
     p = _HtmlTok()
     p._emit_words(text, hashgroup)
     doc = p.doc

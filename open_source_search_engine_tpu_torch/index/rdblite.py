@@ -24,8 +24,9 @@ on-disk format, so either package opens a directory the other wrote:
   through ``saved.new``) without adding a run;
 * :meth:`Rdb.attempt_merge` keeps the run count bounded.
 
-Not carried: the native C++ merge core (the numpy merge is the same
-function).
+Key searches and the merge of dataless runs ride the native core
+(``native/rdbcore.cpp``) when it is built; the numpy code beside them
+computes the same function and takes over without it.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import native
 from ..utils.chaos import g_chaos
 from ..utils.lockcheck import make_rlock
 from ..utils.log import get_logger
@@ -101,6 +103,10 @@ def searchsorted_keys(sorted_keys: np.ndarray, probe: np.ndarray,
     ``np.searchsorted`` on a strided field view copies the whole
     column per call."""
     probe = np.atleast_1d(probe)
+    if native.available():
+        return np.array([native.searchsorted(sorted_keys, probe[i:i + 1],
+                                             side)
+                         for i in range(len(probe))], dtype=np.int64)
     fields = tuple(reversed(sorted_keys.dtype.names))
     cols = [sorted_keys[f] for f in fields]
     out = np.zeros(len(probe), dtype=np.int64)
@@ -239,6 +245,9 @@ def merge_batches(batches: list[RecordBatch],
     if len(nonempty) == 1 and bool(delbits(nonempty[0].keys).all()):
         return nonempty[0]  # sorted single all-positive source: done
     batches = nonempty
+    if not batches[0].has_data and native.available():
+        return RecordBatch(native.merge_runs([b.keys for b in batches],
+                                             keep_tombstones))
     all_keys = np.concatenate([b.keys for b in batches])
     recency = np.concatenate(
         [np.full(len(b), i, dtype=np.int64) for i, b in enumerate(batches)])

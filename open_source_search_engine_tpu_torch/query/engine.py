@@ -273,7 +273,8 @@ def search(coll: Collection, q: str | QueryPlan, *, topk: int = 10,
         while doc_off < len(prep.cand):
             with trace.span("query.pack", doc_off=doc_off):
                 pq = pack_pass(prep, doc_offset=doc_off,
-                               max_docs=max_docs_per_pass)
+                               max_docs=max_docs_per_pass,
+                               budget_shrink=True)
             if pq is None:
                 break
             with trace.span("query.score", n_docs=pq.n_docs):

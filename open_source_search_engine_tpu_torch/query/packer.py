@@ -30,6 +30,8 @@ import numpy as np
 
 from ..index import posdb
 from ..index.collection import Collection
+from ..utils import trace
+from ..utils.membudget import g_membudget
 from . import weights
 from .compiler import SUB_SYNONYM, QueryPlan
 
@@ -349,10 +351,18 @@ def prepare_query(coll: Collection, plan: QueryPlan,
 
 def pack_pass(prep: PreparedQuery, doc_offset: int = 0,
               max_docs: int | None = None,
-              max_positions: int = MAX_POSITIONS) -> PackedQuery | None:
+              max_positions: int = MAX_POSITIONS,
+              budget_shrink: bool = False) -> PackedQuery | None:
     """The PackedQuery for one docid-range pass over the prepared
     candidates (slice [doc_offset : doc_offset+max_docs]); None when the
-    slice is empty."""
+    slice is empty.
+
+    The padded staging arrays are reserved against the process memory
+    budget under the ``pack`` label. With ``budget_shrink=True`` a
+    refused pass halves its doc slice until it fits or one doc is left,
+    so callers advance by the returned ``PackedQuery.n_docs``, not by
+    their stride. Without it a refusal is only counted and the pass goes
+    on (single-pass callers that cannot slice again)."""
     plan, lists = prep.plan, prep.lists
     if max_docs is not None:
         cand = prep.cand[doc_offset:doc_offset + max_docs]
@@ -404,8 +414,21 @@ def pack_pass(prep: PreparedQuery, doc_offset: int = 0,
         per_group.append((didx, payload, slot))
 
     L = _bucket(max_kept, L_FLOOR)
-    return _pack_arrays(prep, cand, doc_offset, per_group, required,
-                        negative, scored, counts, T, D, D_pad, L)
+    # the padded [T, L] staging planes and the [D_pad] sidecars are the
+    # pass's working set
+    est = T * L * 13 + D_pad * 13
+    granted = g_membudget.reserve("pack", est)
+    if not granted and budget_shrink and D > 1:
+        trace.tag(budget_shrunk=True)
+        return pack_pass(prep, doc_offset, max(D // 2, 1), max_positions,
+                         budget_shrink)
+    try:
+        trace.tag(T=int(T), L=int(L), D=int(D), bytes=int(est))
+        return _pack_arrays(prep, cand, doc_offset, per_group, required,
+                            negative, scored, counts, T, D, D_pad, L)
+    finally:
+        if granted:
+            g_membudget.release("pack", est)
 
 
 def _pack_arrays(prep, cand, doc_offset, per_group, required, negative,

@@ -22,6 +22,21 @@ TERMID_MASK = (1 << TERMID_BITS) - 1
 #: payloads longer than this take the C-speed blake2b path
 _LONG_DATA = 1024
 
+_native_hash = None
+
+
+def _get_native_hash():
+    """``native.hash64_native`` (libdoccore's ``osse_hash64``,
+    bit-identical, ~10x the Python loop on URL-length keys), imported at
+    first use: ``native`` imports this package's utilities. It returns
+    None while the library is not built or is switched off, so each call
+    decides and a library restored later is used again."""
+    global _native_hash
+    if _native_hash is None:
+        from .. import native
+        _native_hash = native.hash64_native
+    return _native_hash
+
 
 def hash64(data: bytes | str, seed: int = 0) -> int:
     """64-bit content hash: FNV-1a + murmur finalizer for short keys,
@@ -34,6 +49,9 @@ def hash64(data: bytes | str, seed: int = 0) -> int:
                             key=seed.to_bytes(8, "little") if seed
                             else b"").digest()
         return int.from_bytes(h, "little")
+    h = _get_native_hash()(data, seed)
+    if h is not None:  # None: no library, the Python loop below
+        return h
     h = (_FNV_OFFSET ^ seed) & _MASK64
     for b in data:
         h ^= b

@@ -1,9 +1,10 @@
 """Runtime lock-order / lock-discipline auditor (``OSSE_LOCKCHECK=1``).
 
 Port of ``open_source_search_engine_tpu/utils/lockcheck.py`` (the port
-imports nothing of that package), without the schedule explorer's
-branch: the factories never hand out a cooperatively scheduled primitive
-(``utils/schedcheck.py`` is not ported yet).
+imports nothing of that package). Inside an active
+``schedcheck.explore`` the factories hand the calling thread
+cooperatively scheduled primitives under the same names
+(``utils/schedcheck.py``).
 
 The static half of the analysis plane (``tools/osselint.py``) catches
 rule-shaped bugs lexically; this module catches the ones only execution
@@ -44,6 +45,7 @@ import time
 import traceback
 from typing import Any
 
+from . import schedcheck as _schedcheck
 from .log import get_logger
 from .stats import g_stats
 
@@ -283,27 +285,45 @@ class TrackedRLock(TrackedLock):
 def make_lock(name: str):
     """A mutex for the hot-lock roster: plain ``threading.Lock`` when
     the auditor is off (zero overhead), :class:`TrackedLock` under
-    ``OSSE_LOCKCHECK=1``."""
+    ``OSSE_LOCKCHECK=1``, and a cooperatively scheduled lock when the
+    calling thread is inside an active ``schedcheck.explore``."""
+    if _schedcheck._active is not None:
+        sched = _schedcheck.maybe_lock(name)
+        if sched is not None:
+            return sched
     return TrackedLock(name) if ENABLED else threading.Lock()
 
 
 def make_rlock(name: str):
     """A re-entrant mutex for the roster entry ``name``."""
+    if _schedcheck._active is not None:
+        sched = _schedcheck.maybe_rlock(name)
+        if sched is not None:
+            return sched
     return TrackedRLock(name) if ENABLED else threading.RLock()
 
 
 def make_condition(name: str):
     """A condition variable for the hot-lock roster. Under
     ``OSSE_LOCKCHECK=1`` the inner lock is tracked (wait/notify hold
-    times and ordering edges land under ``name``)."""
+    times and ordering edges land under ``name``); inside an active
+    exploration it is a scheduled condition."""
+    if _schedcheck._active is not None:
+        sched = _schedcheck.maybe_condition(name)
+        if sched is not None:
+            return sched
     if ENABLED:
         return threading.Condition(TrackedLock(name))
     return threading.Condition()
 
 
 def make_event(name: str):
-    """An event for the roster (events carry no lock-ordering
-    information)."""
+    """An event for the roster: plain outside an exploration (events
+    carry no lock-ordering information), scheduled inside one."""
+    if _schedcheck._active is not None:
+        sched = _schedcheck.maybe_event(name)
+        if sched is not None:
+            return sched
     return threading.Event()
 
 

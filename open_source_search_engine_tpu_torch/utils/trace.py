@@ -70,6 +70,10 @@ _ids = itertools.count(1)
 #: current span (None outside any SAMPLED trace)
 _ctx: contextvars.ContextVar["Span | None"] = contextvars.ContextVar(
     "osse_trace_span", default=None)
+#: current trace id, set for unsampled traces too, so that log lines
+#: carry it without the cost of span bookkeeping
+_tid_ctx: contextvars.ContextVar[str | None] = contextvars.ContextVar(
+    "osse_trace_id", default=None)
 
 
 def reset() -> None:
@@ -175,6 +179,14 @@ def current_span() -> Span | None:
     return _ctx.get()
 
 
+def current_trace_id() -> str | None:
+    tid = _tid_ctx.get()
+    if tid is not None:
+        return tid
+    sp = _ctx.get()
+    return sp.trace_id if sp is not None else None
+
+
 def begin(name: str, parent: Span | None = None, **tags) -> Span | None:
     """Open a child span without making it current, for work handed to
     another thread or process; the caller owns ``finish()``."""
@@ -186,7 +198,7 @@ class attach:
     """Re-establish ``sp`` as the current span inside a worker thread
     (fresh threads start with an empty contextvars context)."""
 
-    __slots__ = ("sp", "_tok")
+    __slots__ = ("sp", "_tok", "_tok2")
 
     def __init__(self, sp: Span | None):
         self.sp = sp
@@ -196,11 +208,13 @@ class attach:
             self._tok = None
             return None
         self._tok = _ctx.set(self.sp)
+        self._tok2 = _tid_ctx.set(self.sp.trace_id)
         return self.sp
 
     def __exit__(self, *exc) -> None:
         if self._tok is not None:
             _ctx.reset(self._tok)
+            _tid_ctx.reset(self._tok2)
 
 
 class span:
@@ -342,6 +356,7 @@ class _StartCM:
         root = Span(tid, self.name, host=tr.host, tags=self.tags)
         self.trace = _LiveTrace(tid, self.name, bool(sampled), root)
         self._tok = _ctx.set(root if sampled else None)
+        self._tok2 = _tid_ctx.set(tid)
         g_stats.count("trace.started")
         if sampled:
             g_stats.count("trace.sampled")
@@ -352,6 +367,7 @@ class _StartCM:
         if t is None:
             return
         _ctx.reset(self._tok)
+        _tid_ctx.reset(self._tok2)
         t.root.finish()
         self.tracer._finish(t)
 

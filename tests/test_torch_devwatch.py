@@ -248,11 +248,17 @@ class TestLedger:
                         assert code == 500, (code, body[:200])
             finally:
                 devcheck.set_enabled(False)
+            # the census waits for the stopped loop's thread: until it
+            # has run the ``finally`` of the wave it failed, its running
+            # frame still holds that wave (tickets, index)
+            loop = coll._resident_loop
             if srv is not None:
                 srv.stop()
                 srv._batcher._pool.shutdown(wait=True)
                 srv._batcher._thread.join(30)
             g_residency.reset()
+            assert loop.join(30), "the stopped loop's thread did not end"
+            del loop
             coll._device_index = None
             assert ref() is None, "a failed wave kept its index alive"
         finally:

@@ -199,7 +199,7 @@ def test_port_imports_no_jax_in_a_fresh_process(tmp_path):
 
 @pytest.mark.parametrize("path", sorted(
     [p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "tests/torch_sched_scenarios.py"]))
 def test_no_source_imports_jax_or_the_jax_package(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -213,6 +213,85 @@ def test_no_source_imports_jax_or_the_jax_package(path):
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib",
                                "open_source_search_engine_tpu"), (path, n)
+
+
+_NATIVE_PROBE = """
+import importlib.abc, sys, tempfile
+sys.path.insert(0, {root!r})
+
+
+class NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "open_source_search_engine_tpu"):
+            raise ImportError(f"{{name}} is blocked in this probe")
+        return None
+
+
+sys.meta_path.insert(0, NoJax())
+from open_source_search_engine_tpu_torch import native
+from open_source_search_engine_tpu_torch.build import docproc
+from open_source_search_engine_tpu_torch.index.collection import Collection
+from open_source_search_engine_tpu_torch.query import engine
+c = Collection("nat", tempfile.mkdtemp(), device="cpu")
+ml = docproc.index_document(c, "http://n.test/", "<p>native alpha.</p>")
+assert native.get_doccore() is not None and native.available()
+c.dump_all()
+docproc.index_document(c, "http://m.test/", "<p>native beta.</p>")
+c.dump_all()
+c.posdb.attempt_merge(force=True)
+assert engine.search(c, "native").total_matches == 2
+maps = open("/proc/self/maps").read()
+libs = sorted({{line.split()[-1] for line in maps.splitlines()
+                if "libdoccore" in line or "librdbcore" in line}})
+print("LIBS", *libs)
+"""
+
+
+def test_native_loads_only_the_ports_own_libraries(tmp_path):
+    """The native core imports nothing of the JAX package and loads none
+    of its libraries (that package keeps its own beside its sources):
+    the two libraries mapped are the port's, built from the port's own
+    sources into the ignored build directory."""
+    from open_source_search_engine_tpu_torch import native
+    out = subprocess.run(
+        [sys.executable, "-c", _NATIVE_PROBE.format(root=str(ROOT))],
+        capture_output=True, text=True, cwd=tmp_path, env=_clean_env(),
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    (line,) = [ln for ln in out.stdout.splitlines()
+               if ln.startswith("LIBS")]
+    libs = line.split()[1:]
+    assert libs == sorted([str(native.library_path("doccore", "-O2")),
+                           str(native.library_path("rdbcore", "-O3"))])
+    for lib in libs:
+        assert Path(lib).parent == ROOT / "build" / "torch_native"
+    assert native.SRC_DIR == PORT / "native"
+    assert sorted(p.name for p in native.SRC_DIR.glob("*.cpp")) == [
+        "doccore.cpp", "rdbcore.cpp"]
+
+
+def test_sched_scenarios_import_no_jax(tmp_path):
+    """``tests/torch_sched_scenarios.py`` drives the port alone: it
+    imports, and its scenarios run, with JAX and the JAX package
+    unimportable."""
+    probe = _NATIVE_PROBE.split("sys.meta_path.insert(0, NoJax())")[0] + (
+        "sys.meta_path.insert(0, NoJax())\n"
+        "from open_source_search_engine_tpu_torch.utils import schedcheck\n"
+        "schedcheck.ENABLED = True\n"
+        "from tests import torch_sched_scenarios as s\n"
+        "for name, fn in sorted(s.SCENARIOS.items()):\n"
+        "    schedcheck.explore(fn, schedules=2)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'open_source_search_engine_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ISOLATED')\n")
+    out = subprocess.run(
+        [sys.executable, "-c", probe.format(root=str(ROOT))],
+        capture_output=True, text=True, cwd=tmp_path, env=_clean_env(),
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "ISOLATED" in out.stdout
 
 
 def test_default_device_raises_without_cuda(tmp_path):
