@@ -143,6 +143,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    sorted F1, FD and F2 queries on the card with results and escalation
    counts equal to the same index on ``device="cpu"``;
 
+   (5k) a crawled corpus on the card (``crawled_corpus``, after (5f)):
+   the first CRAWL_DOCS pages of the corpus served over HTTP in this
+   process by :class:`CrawlSite` (one listener per site on its own
+   loopback address, each page with a link block, every site's
+   ``robots.txt`` disallowing ``/private``), crawled by a crawlbot job
+   created through ``SearchHTTPServer``'s ``/crawlbot`` with the real
+   Fetcher: every allowed page indexed, every ``/private/`` link
+   robots-blocked, no error, the seconds, pages/s and the frontier
+   journal's fsyncs (count and seconds, timed here) printed beside the
+   card; the 64 queries to ``/search?c=crawl_bench`` with the counters
+   reset just before, each page equal to the flat path's ``engine.search``
+   on the card (totals, scores rtol=1e-5, docids by tie runs, site
+   clustering on), K1 launched, no plain version, no device error; then
+   the job deleted with devwatch armed (no tenant, no ledger bytes, no
+   directory) and a job of the same name crawling one site afresh;
+
    (5g) the durable node over the same collection (``durability``), at
    the default process budget: a ``save_all()`` adds no run and empties no memtable (run counts and
    memtable records printed before and after); the collection reopened
@@ -247,6 +263,16 @@ ALLOC_SLACK = 1 << 30
 #: [native]: the first pages of the main path's corpus, indexed through
 #: both host paths
 NATIVE_SLICE = 2048
+
+#: (5k): the first pages of the main path's corpus, served over HTTP on
+#: one loopback address per site and crawled through /crawlbot. Cut from
+#: 4,096: on the H100 machine's host those took 147.7 s to crawl (28.4
+#: pages/s, each page indexed alone with its inlink propagation), past
+#: the 60 s the crawl may take of the run
+CRAWL_DOCS = 2048
+#: (5k): every CRAWL_PRIVATE_EVERY-th site's root page links to its
+#: robots-disallowed /private/ page
+CRAWL_PRIVATE_EVERY = 8
 
 
 def log(msg: str) -> None:
@@ -1118,6 +1144,299 @@ def numeric_operators(colldb, coll, queries, work, reset_counts, card):
         f" ms, {nb} batches (mean {nq / nb:.2f} queries), K1/K2 launches "
         f"{kl}; every page equal, every date in range and in order; phase"
         f" {out['phase_s']:.1f} s ({card})")
+    return out
+
+
+class CrawlSite:
+    """(5k)'s web: the first ``n_docs`` pages of ``corpus.gen_docs``
+    served over HTTP in this process, one listener per corpus site, each
+    on its own loopback address (site ``s`` on ``127.0.0.{s + 2}``), so
+    each site has its own first IP. A page keeps its body and gains a
+    link block: its site's next page and two pages of other sites, drawn
+    from a fixed seed. A site's root page links to all of its pages, and
+    every ``CRAWL_PRIVATE_EVERY``-th root first links to ``/private/``,
+    which every site's ``robots.txt`` disallows."""
+
+    N_SITES = 97  # gen_docs' sites
+
+    def __init__(self, n_docs: int):
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        import numpy as np
+        from open_source_search_engine_tpu_torch.corpus import gen_docs
+
+        rng = np.random.default_rng(7)
+        self.servers = []
+        pages: dict = {}
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def do_GET(self):
+                key = (self.server.server_address[0], self.path)
+                if self.path == "/robots.txt":
+                    body, ctype = (b"User-agent: *\nDisallow: /private\n",
+                                   "text/plain")
+                elif key in pages:
+                    body, ctype = pages[key], "text/html"
+                else:
+                    self.send_error(404)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        try:
+            for s in range(self.N_SITES):
+                httpd = ThreadingHTTPServer((f"127.0.0.{s + 2}", 0), Handler)
+                httpd.daemon_threads = True
+                threading.Thread(target=httpd.serve_forever,
+                                 name=f"crawl-site-{s}", daemon=True).start()
+                self.servers.append(httpd)
+        except BaseException:
+            self.close()
+            raise
+        self.origins = [f"http://{h.server_address[0]}:"
+                        f"{h.server_address[1]}" for h in self.servers]
+        self.addresses = [h.server_address[0] for h in self.servers]
+        docs = [html for _, html in gen_docs(n_docs)]
+        self.by_site = by_site = [list(range(s, n_docs, self.N_SITES))
+                                  for s in range(self.N_SITES)]
+        for d, html in enumerate(docs):
+            s = d % self.N_SITES
+            mine = by_site[s]
+            nxt = mine[(mine.index(d) + 1) % len(mine)]
+            links = [f'<a href="/doc{nxt}">next page</a>']
+            for e in rng.integers(0, n_docs, size=2):
+                e = int(e) if int(e) % self.N_SITES != s \
+                    else (int(e) + 1) % n_docs
+                links.append(f'<a href="{self.origins[e % self.N_SITES]}'
+                             f'/doc{e}">see also</a>')
+            pages[(self.addresses[s], f"/doc{d}")] = html.replace(
+                "</body>", "<p>" + " ".join(links) + "</p></body>").encode()
+        self.private = []
+        for s, addr in enumerate(self.addresses):
+            links = [f'<a href="/doc{d}">page {d}</a>' for d in by_site[s]]
+            if s % CRAWL_PRIVATE_EVERY == 0:
+                links.insert(0, '<a href="/private/">staff only</a>')
+                self.private.append(f"{self.origins[s]}/private/")
+            pages[(addr, "/")] = (
+                f"<html><head><title>site {s}</title></head><body><p>"
+                + " ".join(links) + "</p></body></html>").encode()
+        #: what robots.txt lets a crawler index: every root and page
+        self.allowed = self.N_SITES + n_docs
+
+    def close(self) -> None:
+        """Stop every listener; the shutdowns run together (each waits up
+        to a poll interval, 0.5 s)."""
+        import threading
+        stops = [threading.Thread(target=h.shutdown, daemon=True)
+                 for h in self.servers]
+        for t in stops:
+            t.start()
+        for t in stops:
+            t.join(timeout=30)
+        for httpd in self.servers:
+            httpd.server_close()
+        self.servers = []
+
+
+def crawled_corpus(work, queries, reset_counts, card, device,
+                   n_docs: int = CRAWL_DOCS):
+    """(5k) a crawled corpus on the card: a :class:`CrawlSite` of
+    ``n_docs`` pages, crawled through the server's entry point
+    (``/crawlbot`` with the real Fetcher, admin-gated, hosts spanned,
+    robots.txt and each IP's 0.25 s politeness honoured, the frontier's
+    journal fsynced per record, timed here); every allowed page indexed,
+    every /private/ link robots-blocked, no error; then the 64 queries to
+    ``/search?c=crawl_bench`` (4 clients, the counters reset just before,
+    the post-query rerank off through ``/admin/parms``) each equal to the
+    flat path's ``engine.search`` over the collection on ``device``
+    (:func:`corpus.assert_clustered_page_parity`), K1 launched, no plain
+    version, no device error; then ``action=delete`` with devwatch armed:
+    no tenant, no ledger bytes, no directory, and a job made again under
+    the name starts from an empty frontier (one site, maxpages=8).
+    Every wait has a deadline; the listeners, the jobs and the server go
+    on any failure. Returns the phase's numbers."""
+    from open_source_search_engine_tpu_torch.corpus import \
+        assert_clustered_page_parity
+    from open_source_search_engine_tpu_torch.query import engine
+    from open_source_search_engine_tpu_torch.query import \
+        fd_scores_kernel as fdk
+    from open_source_search_engine_tpu_torch.query import \
+        min_scores_kernel as msk
+    from open_source_search_engine_tpu_torch.serve.server import \
+        SearchHTTPServer
+    from open_source_search_engine_tpu_torch.serve.tenancy import \
+        g_residency
+    from open_source_search_engine_tpu_torch.utils import devwatch
+    from open_source_search_engine_tpu_torch.utils.stats import g_stats
+
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    out = {"card": card, "docs": n_docs}
+    pwd = "crawlpw"
+    site = CrawlSite(n_docs)
+    # the Fetcher's urllib opener honours the environment's http_proxy:
+    # these loopback addresses must be fetched directly
+    proxy_env = {k: os.environ.get(k) for k in ("no_proxy", "NO_PROXY")}
+    os.environ["no_proxy"] = os.environ["NO_PROXY"] = ",".join(
+        site.addresses + ["127.0.0.1", "localhost"])
+    srv = SearchHTTPServer(work / "crawl", port=0, device=device)
+    srv.conf.master_password = pwd
+    real_fsync = os.fsync
+    fsyncs = {"n": 0, "s": 0.0}
+
+    def timed_fsync(fd):
+        t0 = time.perf_counter()
+        real_fsync(fd)
+        fsyncs["s"] += time.perf_counter() - t0
+        fsyncs["n"] += 1
+
+    def job(name, deadline_s, **params):
+        code, body = http_get(base, "/crawlbot", dict(
+            pwd=pwd, name=name, **params))
+        assert code == 200, (code, body[:300])
+        deadline = time.perf_counter() + deadline_s
+        while True:
+            code, body = http_get(base, "/crawlbot", {"pwd": pwd,
+                                                      "name": name})
+            st = json.loads(body)
+            assert code == 200, (code, body[:300])
+            if st["done"]:
+                return st
+            assert time.perf_counter() < deadline, f"crawl {name}: {st}"
+            time.sleep(0.1)
+
+    devwatch.reset()
+    devwatch.enable()
+    srv.start()
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        # ---- the crawl ----
+        os.fsync = timed_fsync
+        t0 = time.perf_counter()
+        try:
+            st = job("bench", 600, seeds=",".join(o + "/"
+                                                  for o in site.origins),
+                     maxpages=site.allowed, maxhops=3, spanhosts=1)
+        finally:
+            os.fsync = real_fsync
+        t_crawl = time.perf_counter() - t0
+        # "done" is set before the job's final save: let the save end
+        runner = srv._crawlbot.get("bench").thread
+        runner.join(timeout=120)
+        assert not runner.is_alive(), "the crawl job's final save hung"
+        assert st["jobError"] == "" and st["errors"] == 0, st
+        assert st["indexed"] == site.allowed, (st, site.allowed)
+        assert st["robots_blocked"] == len(site.private), st
+        assert st["frontier"] == 0, st
+        coll = srv.colldb.get("crawl_bench")
+        cdir = coll.dir
+        journal = cdir / "spider" / "spiderdb" / "addsinprogress.jsonl"
+        n_records = len(journal.read_text().splitlines())
+        # a request per URL queued (each fetched) and a reply per page
+        # indexed, each fsynced once
+        assert fsyncs["n"] == n_records == 2 * st["indexed"] \
+            + st["robots_blocked"], (fsyncs, n_records, st)
+        assert coll.num_docs == site.allowed
+        out.update(crawl_s=t_crawl, pages_per_s=st["indexed"] / t_crawl,
+                   indexed=st["indexed"], fetched=st["fetched"],
+                   robots_blocked=st["robots_blocked"],
+                   links_found=st["links_found"], fsyncs=fsyncs["n"],
+                   fsync_s=fsyncs["s"])
+        log(f"[crawl] /crawlbot over {site.N_SITES} sites x "
+            f"{n_docs // site.N_SITES}+ pages: {st['indexed']} indexed "
+            f"(every page robots.txt allows), {st['fetched']} fetched, "
+            f"{st['robots_blocked']} robots-blocked (the /private/ links), "
+            f"0 errors, {st['links_found']} links found in {t_crawl:.2f} s "
+            f"= {out['pages_per_s']:.1f} pages/s; the frontier's journal: "
+            f"{fsyncs['n']} fsyncs ({n_records} records) in "
+            f"{fsyncs['s']:.3f} s; card {card}")
+
+        # ---- the search, on the card ----
+        code, body = http_get(base, "/admin/parms", {
+            "pwd": pwd, "c": "crawl_bench", "pqr": "0"})
+        assert code == 200 and json.loads(body)["updated"] == {"pqr": "0"}
+        coll.conf.result_cache_ttl = 0
+        http_clients(base, queries[:4], 4, "crawl_bench")  # the index, warm
+        di = engine.get_device_index(coll)
+        routes0 = dict(di.route_counts)
+        g_stats.reset()
+        reset_counts()
+        wall, lat, pages = http_clients(base, queries, 4, "crawl_bench")
+        kl = (msk.launches, fdk.launches_tail + fdk.launches_notail,
+              msk.plain_calls + fdk.plain_calls)
+        errs = g_stats.counters.get("serve.device_error", 0)
+        routes = {k: v - routes0.get(k, 0)
+                  for k, v in di.route_counts.items()}
+        assert errs == 0, errs
+        if on_card:
+            assert kl[0] >= 1 and kl[2] == 0, kl
+        totals = []
+        t0 = time.perf_counter()
+        for q in queries:
+            flat = engine.search(coll, q, topk=10)
+            deep = engine.search(coll, q, topk=max(10, min(
+                flat.total_matches, 1024)), site_cluster=False,
+                with_snippets=False)
+            assert_clustered_page_parity(pages[q], flat, deep, q)
+            totals.append(flat.total_matches)
+        t_flat = time.perf_counter() - t0
+        out.update(search_qps=len(queries) / wall, flat_compare_s=t_flat,
+                   search_p50_ms=statistics.median(lat),
+                   k1_launches=kl[0], k2_launches=kl[1], routes=routes,
+                   base_source=di.base_source)
+        log(f"[crawl] /search?c=crawl_bench, {len(queries)} queries from 4 "
+            f"clients: {out['search_qps']:.2f} qps, p50 "
+            f"{out['search_p50_ms']:.2f} ms; routes {routes}; K1 launches "
+            f"{kl[0]}, K2 launches {kl[1]}, plain calls {kl[2]}, device "
+            f"errors {errs}; every page equals the flat path on {device} "
+            f"(totals {min(totals)}-{max(totals)}, scores rtol=1e-5, "
+            f"docids by tie runs; the flat pages in {t_flat:.1f} s)")
+        del di
+
+        # ---- the delete ----
+        ledger = devwatch.collection_bytes("crawl_bench")
+        assert ledger > 0, "the crawled tenant is not in the HBM ledger"
+        assert "crawl_bench" in g_residency.snapshot()["tenants"]
+        code, body = http_get(base, "/crawlbot", {
+            "pwd": pwd, "name": "bench", "action": "delete"})
+        assert code == 200 and json.loads(body)["deleted"], body
+        del coll
+        assert "crawl_bench" not in g_residency.snapshot()["tenants"]
+        assert devwatch.collection_bytes("crawl_bench") == 0
+        assert not cdir.exists(), cdir
+        again = job("bench", 120, seeds=site.origins[1] + "/", maxpages=8)
+        assert again["indexed"] == min(8, 1 + len(site.by_site[1])) \
+            and again["errors"] == 0, again
+        code, body = http_get(base, "/crawlbot", {
+            "pwd": pwd, "name": "bench", "action": "delete"})
+        assert code == 200 and not cdir.exists()
+        out.update(ledger_bytes_before_delete=ledger)
+        log(f"[crawl] delete: the tenant, {ledger} ledger bytes and the "
+            f"directory gone; the same name crawled one site afresh "
+            f"({again['indexed']} pages)")
+    finally:
+        bot = srv._crawlbot
+        for name in (list(bot.jobs) if bot is not None else []):
+            bot.delete(name)
+        srv.stop()
+        site.close()
+        devwatch.disable()
+        devwatch.reset()
+        g_residency.reset()
+        for k, v in proxy_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[crawl] phase (5k) in {out['phase_s']:.1f} s")
     return out
 
 
@@ -3238,6 +3557,8 @@ def main() -> int:
 
     route = route_corpus(work / "route", "cuda")
 
+    crawled = crawled_corpus(work, queries, reset_counts, smi, "cuda")
+
     meshed = mesh(colldb, coll, queries, work, reset_counts, smi)
     g_residency.reset()
     coll._device_index = None
@@ -3306,6 +3627,7 @@ def main() -> int:
             "http_sharded_search":
                 meshed["http_sharded_search"]["k1_launches"]},
         "launches_cluster_nodes": clustered["k1_launches"],
+        "launches_crawled": crawled["k1_launches"],
         "mesh_stacked_cube": meshed["k1_stacked"],
         "max_abs_err": max(max_err, meshed["k1_stacked"]["max_abs_err"]),
         "ms": k1d_ms, "parent_ms": k1d_par, "plain_ms": k1d_plain_ms,
@@ -3341,6 +3663,7 @@ def main() -> int:
         "launches_mesh": {
             "host_merge": meshed["host_merge"]["k2_launches"]},
         "launches_cluster_nodes": clustered["k2_launches"],
+        "launches_crawled": crawled["k2_launches"],
         "mesh_shard_wave": meshed["k2_shard_wave"],
         "launches_tail_notail": list(k2_split),
         "max_abs_err": max(k2_err, meshed["k2_shard_wave"]["max_abs_err"]), "ms": k2_ms, "parent_ms": k2_par,
@@ -3371,6 +3694,7 @@ def main() -> int:
         "numeric": numeric, "route_corpus": route,
         "cold_start_s": t_cold, "cache_read_s": t_cached,
         "durability": durable, "mesh": meshed, "cluster": clustered,
+        "crawl": crawled,
         "index_docs_s": coll_rate}}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

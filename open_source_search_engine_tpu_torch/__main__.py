@@ -3,6 +3,8 @@
     python -m open_source_search_engine_tpu_torch serve --dir ./data --port 8000
     python -m open_source_search_engine_tpu_torch inject --dir ./data URL [FILE]
     python -m open_source_search_engine_tpu_torch search --dir ./data "query"
+    python -m open_source_search_engine_tpu_torch crawl --dir ./data \
+        --seeds http://a.test/,http://b.test/ --max-pages 100
     python -m open_source_search_engine_tpu_torch save --dir ./data
     python -m open_source_search_engine_tpu_torch repair --dir ./data
     python -m open_source_search_engine_tpu_torch rebalance --dir ./grid \
@@ -18,6 +20,12 @@ clock (``--autosave`` minutes) and the daily merge (the
 saves every open collection (each Rdb's memtable checkpoint, the doc
 count, the speller and the conf), so a restart answers the same; every
 write is journaled first, so a kill -9 loses no acknowledged ``/inject``.
+Its server has a spider (``SpiderLoop`` over ``--coll``) that ``/addurl``
+queues into; with ``--spider`` the serve loop also crawls, a
+``crawl_step`` at a time (ignored with ``--hosts``). ``crawl`` crawls the
+``--seeds`` into ``--coll`` through a durable frontier
+(``--dir/spider/<coll>``) until the frontier drains or ``--max-pages``
+pages are indexed, then saves.
 ``inject`` saves after indexing, and exits 1 with ``"error": "banned"``
 when a tagdb ``manualban`` drops the page. ``save`` checkpoints every
 collection of the directory; ``repair`` rebuilds a collection's posdb,
@@ -56,14 +64,22 @@ def cmd_serve(args) -> int:
     from .control.dailymerge import DailyMerge
     from .control.process import Process
     from .serve.server import SearchHTTPServer
+    from .spider.loop import SpiderLoop
 
     cluster = None
     if args.hosts:
         from .parallel.cluster import ClusterClient, HostsConf
         cluster = ClusterClient(HostsConf.load(args.hosts))
+        if args.spider:
+            print("--spider is ignored with --hosts: crawled pages "
+                  "would land in the local collection while searches "
+                  "go to the cluster", file=sys.stderr)
+            args.spider = False
     srv = SearchHTTPServer(args.dir, host=args.host, port=args.port,
                            device=args.torch_device, cluster=cluster)
-    srv.colldb.get(args.coll)   # open (or create) the default collection
+    # open (or create) the default collection; its spider feeds /addurl
+    spider = SpiderLoop(srv.colldb.get(args.coll))
+    srv.spider = spider
     proc = Process(autosave_minutes=args.autosave)
     proc.register(srv.colldb)
     proc.install_signal_handlers()
@@ -79,9 +95,13 @@ def cmd_serve(args) -> int:
                       "coll": args.coll, "dir": args.dir,
                       "device": args.torch_device}), flush=True)
     while not proc.stopping:
-        time.sleep(0.2)
+        if not args.spider:
+            time.sleep(0.2)
+        elif spider.crawl_step() == 0:
+            time.sleep(1.0)
     srv.stop()         # no request writes while the collections save
     proc.shutdown()
+    spider.fetcher.close()
     if cluster is not None:
         cluster.close()
     print(json.dumps({"stopped": True, "saved": sorted(srv.colldb.colls)}),
@@ -231,6 +251,28 @@ def cmd_search(args) -> int:
     return 0
 
 
+def cmd_crawl(args) -> int:
+    from .index.collection import CollectionDb
+    from .spider.loop import SpiderLoop
+    from .spider.spiderdb import DurableSpiderScheduler
+
+    colldb = CollectionDb(args.dir, device=args.torch_device)
+    coll = colldb.get(args.coll)
+    sched = DurableSpiderScheduler(Path(args.dir) / "spider" / args.coll,
+                                   banned=coll.tagdb.is_banned)
+    loop = SpiderLoop(coll, scheduler=sched)
+    for seed in (args.seeds or "").split(","):
+        if seed.strip():
+            loop.add_url(seed.strip())
+    stats = loop.crawl(max_pages=args.max_pages)
+    colldb.save_all()
+    loop.sched.save()
+    loop.fetcher.close()
+    print(json.dumps({"fetched": stats.fetched, "indexed": stats.indexed,
+                      "errors": stats.errors, "docs": coll.num_docs}))
+    return 0
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m open_source_search_engine_tpu_torch",
@@ -247,6 +289,8 @@ def main(argv: list[str] | None = None) -> int:
                    help="autosave interval in minutes (default 5)")
     p.add_argument("--hosts", help="hosts.conf: front a node cluster "
                    "instead of the local collections")
+    p.add_argument("--spider", action="store_true",
+                   help="also run the crawl loop in the serve loop")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("node", help="run one shard-replica node (cluster)")
@@ -288,6 +332,12 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("-k", type=int, default=10)
     p.add_argument("--json", action="store_true", help="compact JSON")
     p.set_defaults(fn=cmd_search)
+
+    p = sub.add_parser("crawl", help="run the spider")
+    _add_common(p)
+    p.add_argument("--seeds", help="comma-separated seed URLs")
+    p.add_argument("--max-pages", type=int, default=100)
+    p.set_defaults(fn=cmd_crawl)
 
     p = sub.add_parser("save", help="checkpoint every collection")
     _add_common(p)

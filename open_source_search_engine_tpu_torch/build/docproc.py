@@ -79,6 +79,9 @@ class MetaList:
     #: the delete path tombstones the linkdb edges under the add's keys)
     edges: list = field(default_factory=list)
     edge_sites: dict = field(default_factory=dict)
+    #: the page's raw outlinks [(href, anchor)] from the same tokenize
+    #: pass (the spider queues them)
+    links: list = field(default_factory=list)
     #: linkees whose anchor set this add or remove touched (the next
     #: propagation wave, read by :func:`refresh_linkees`)
     refresh_targets: list = field(default_factory=list)
@@ -406,7 +409,7 @@ def build_meta_list(url: str, content: str, *, is_html: bool = True,
         langid=langid, site=site,
         sections=sorted(set(sect_of.values())),
         boiler_sections=sorted(boiler), fields=fields, words=doc_words,
-        edges=edges, edge_sites=linkee_sites,
+        edges=edges, edge_sites=linkee_sites, links=tdoc.links,
         fielddb_keys=fdb_keys, fielddb_blobs=fdb_blobs)
 
 

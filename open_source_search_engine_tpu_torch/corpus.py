@@ -184,6 +184,52 @@ def assert_tie_run_parity(got, want, label, rtol: float = 1e-5) -> None:
         i = j
 
 
+def assert_clustered_page_parity(page: str, flat_page, flat_all, label,
+                                 rtol: float = 1e-5) -> None:
+    """A ``/search`` JSON body (site clustering on, as the server answers)
+    against the flat path over the same records: ``flat_page`` is
+    ``engine.search(coll, q, topk=n)`` (clustered) and ``flat_all`` the
+    same query unclustered to a deeper ``topk``.
+
+    Which docs of a tie run survive the 2-per-site clustering depends on
+    the route's order inside the run, so the page is held to what the
+    order cannot change: the total exact; the score sequence within
+    ``rtol`` (each site keeps its top scores whatever the tie order); and
+    per site, the docs shown equal ``flat_all``'s best of that site by
+    complete tie runs (:func:`assert_tie_run_parity`), each with the flat
+    path's url. The collection's post-query rerank must be off (its
+    demotions depend on which docs share the page)."""
+    import json
+    a = json.loads(page)
+    res = a["results"]
+    assert a["totalMatches"] == flat_page.total_matches, \
+        (label, a["totalMatches"], flat_page.total_matches)
+    assert len(res) == len(flat_page.results), \
+        (label, len(res), len(flat_page.results))
+    np.testing.assert_allclose([r["score"] for r in res],
+                               [r.score for r in flat_page.results],
+                               rtol=rtol, err_msg=str(label))
+    cut = len(flat_all.results) < flat_all.total_matches
+    url_of = {int(r.docid): r.url for r in flat_all.results}
+    by_site: dict = {}
+    for r in flat_all.results:
+        by_site.setdefault(r.site, []).append(r)
+    shown: dict = {}
+    for r in res:
+        assert int(r["docId"]) in url_of, (label, r["docId"])
+        assert r["url"] == url_of[int(r["docId"])], (label, r)
+        shown.setdefault(r["site"], []).append(r)
+    for site, rows in shown.items():
+        want = by_site[site]
+        k = len(rows)
+        assert_tie_run_parity(
+            (np.array([r["docId"] for r in rows], np.uint64),
+             np.array([r["score"] for r in rows]), len(want) + cut),
+            (np.array([r.docid for r in want[:k]], np.uint64),
+             np.array([r.score for r in want[:k]]), len(want) + cut),
+            (label, site), rtol=rtol)
+
+
 def assert_pages_match(got: str, want: str, label) -> None:
     """Two ``/search`` JSON bodies (``render_results(..., "json")``):
     ``query``, ``totalMatches``, ``clustered``, ``suggestion`` and

@@ -163,6 +163,18 @@ class Collection:
         self.conf.save(self._conf_path)
         self._save_stats()
 
+    def close(self) -> None:
+        """Release the process-wide accounting of a collection being
+        deleted or unloaded (the delColl half of ``Collectiondb.cpp``):
+        zero every Rdb's memtable gauge, so the budget does not bill a
+        purged corpus, and drop the host caches. The disk is left as it
+        is."""
+        from ..utils.membudget import g_membudget
+        for db in self.rdbs().values():
+            g_membudget.set_gauge("memtable", str(db.dir), 0)
+        self.titlerec_cache.clear()
+        self.termlist_cache = TermlistCache()
+
 
 class CollectionDb:
     """Registry of a node's collections (reference ``g_collectiondb``),
@@ -190,9 +202,13 @@ class CollectionDb:
             return self.colls[name]
 
     def drop(self, name: str) -> Collection | None:
-        """Unregister a collection (its directory is left as it is)."""
+        """Unregister and ``close()`` a collection (its directory is left
+        as it is, and the serve layer's residency is the caller's)."""
         with self._lock:
-            return self.colls.pop(name, None)
+            coll = self.colls.pop(name, None)
+        if coll is not None:
+            coll.close()
+        return coll
 
     def names(self) -> list[str]:
         disk = {p.name for p in (self.base_dir / "coll").glob("*")

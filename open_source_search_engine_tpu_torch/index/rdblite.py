@@ -426,6 +426,7 @@ class Rdb:
     (``Msg5::getList`` — merged memtable+runs range read), ``save`` /
     ``load_saved`` (the RdbTree ``-saved.dat`` checkpoint).
 
+    ``journal=False`` (spiderdb, which keeps its own journal) or
     ``OSSE_NO_JOURNAL=1`` in the environment (for bulk rebuilds whose
     source is itself durable) turns the write-ahead journal off;
     ``OSSE_JOURNAL_FSYNC=1`` fsyncs each append, for power loss (a flush
@@ -433,7 +434,8 @@ class Rdb:
 
     def __init__(self, name: str, directory: str | Path,
                  key_dtype: np.dtype, has_data: bool = False,
-                 max_memtable_bytes: int = 64 << 20, max_runs: int = 8):
+                 max_memtable_bytes: int = 64 << 20, max_runs: int = 8,
+                 journal: bool = True):
         self.name = name
         self.dir = Path(directory) / name
         self.dir.mkdir(parents=True, exist_ok=True)
@@ -452,7 +454,8 @@ class Rdb:
         #: bumped on every mutation; the termlist cache and the device
         #: index key on it
         self.version = 0
-        self.journal_enabled = os.environ.get("OSSE_NO_JOURNAL") != "1"
+        self.journal_enabled = journal and \
+            os.environ.get("OSSE_NO_JOURNAL") != "1"
         self._journal_path = self.dir / "addsinprogress.bin"
         self._journal_f = None
         #: records the journal replayed at this open (0 after a clean

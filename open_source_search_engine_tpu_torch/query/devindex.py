@@ -909,14 +909,22 @@ class DeviceIndex:
             ti = np.searchsorted(self.dir_termids, pair_t)
             ok = ti < len(self.dir_termids)
             ok[ok] = self.dir_termids[ti[ok]] == pair_t[ok]
-            for term_i in np.unique(ti[ok]):
-                m = ok & (ti == term_i)
+            # pair_t is sorted, so each term's pairs are one slice of the
+            # ok pairs: a pass per term over its own pairs, not over all
+            # of them (which made a memtable of re-indexed pages, as a
+            # crawl leaves, quadratic)
+            t_ok, d_ok = ti[ok], pair_d[ok]
+            terms, lo = np.unique(t_ok, return_index=True)
+            hi = np.append(lo[1:], len(t_ok))
+            for term_i, a0, b0 in zip(terms.tolist(), lo.tolist(),
+                                      hi.tolist()):
                 a, b = int(self.dir_dstart[term_i]), \
                     int(self.dir_dstart[term_i + 1])
                 run = self.h_doc_col[a:b]
-                ppos = np.searchsorted(run, pair_d[m])
+                d = d_ok[a0:b0]
+                ppos = np.searchsorted(run, d)
                 inb = ppos < len(run)
-                inb[inb] = run[ppos[inb]] == pair_d[m][inb]
+                inb[inb] = run[ppos[inb]] == d[inb]
                 self.tomb_df[term_i] = int(inb.sum())
 
         upd_idx = np.empty(0, np.int32)

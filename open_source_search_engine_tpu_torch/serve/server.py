@@ -20,7 +20,10 @@ Endpoints (the reference's query-string names: ``q``, ``n``, ``s``,
 * ``GET /search?q=...&n=10&c=main&format=json|xml|csv|html``
 * ``GET /get?d=<docid>&q=...`` — cached page, query terms highlighted
 * ``GET|POST /inject?u=<url>`` (body = content), ``/delete?u=<url>``
-* ``GET /addurl?u=<url>`` — 503: no spider runs in this package
+* ``GET /addurl?u=<url>`` — queue a URL for the spider (``spider=``, a
+  :class:`~..spider.loop.SpiderLoop`; 503 without one)
+* ``GET /crawlbot?name=...&seeds=...`` — the REST crawl jobs
+  (:mod:`.crawlbot`); a job's pages are searched with ``c=crawl_<name>``
 * ``GET /metrics`` and ``/admin``, ``/admin/stats``, ``/admin/mem``,
   ``/admin/cache``, ``/admin/parms``, ``/admin/admission``,
   ``/admin/tenants``, ``/admin/traces``
@@ -68,8 +71,6 @@ Departures from the reference:
 * **A listen backlog of 128** (:class:`NodeHTTPServer`), not
   socketserver's 5: with 5, a burst of concurrent new connections has
   its SYNs dropped and those clients wait a second to retry.
-* **Left out, answering 501 with the ROADMAP item that carries it**
-  (:data:`NOT_PORTED`): ``/crawlbot`` and the spider.
 """
 
 from __future__ import annotations
@@ -110,11 +111,6 @@ from . import admission as admission_mod
 from .tenancy import g_residency
 
 log = get_logger("http")
-
-#: path → the ROADMAP queue item that carries it; each answers 501
-NOT_PORTED = {
-    "/crawlbot": "item 6 (the spider and crawlbot)",
-}
 
 
 class QueryBatcher:
@@ -368,17 +364,21 @@ class SearchHTTPServer:
     on the CPU). ``colldb``: an already open registry over ``base_dir``
     to serve (its collections keep their device). ``sharded``: a
     ShardedCollection to front instead of the flat collections;
-    ``cluster``: a ClusterClient over node processes to front instead."""
+    ``cluster``: a ClusterClient over node processes to front instead;
+    ``spider``: the SpiderLoop that ``/addurl`` queues into."""
 
     BAN_COOLDOWN_S = 60.0
 
     def __init__(self, base_dir, host: str = "127.0.0.1", port: int = 8000,
                  sharded=None, cluster=None, conf: Conf | None = None,
-                 device=None, colldb: CollectionDb | None = None):
+                 device=None, colldb: CollectionDb | None = None,
+                 spider=None):
         #: ShardedCollection | None (the in-process mesh)
         self.sharded = sharded
         #: ClusterClient | None (the multi-process cluster)
         self.cluster = cluster
+        #: SpiderLoop | None: the spider queue /addurl feeds
+        self.spider = spider
         self.colldb = colldb if colldb is not None \
             else CollectionDb(base_dir, device=device)
         self.host = host
@@ -440,6 +440,10 @@ class SearchHTTPServer:
             desc="rendered result pages (Msg17/Msg40Cache role)")
         #: per-user admin accounts (Users.cpp / users.txt)
         self.users = Users(base_dir)
+        #: the crawlbot job registry (made at the first /crawlbot), and
+        #: the factory of its jobs' fetchers (None: a real Fetcher)
+        self._crawlbot = None
+        self.crawl_fetcher_factory = None
 
     def _on_guardrail_parm(self, name: str, value) -> None:
         """Live parm updates feeding the guardrail planes."""
@@ -594,6 +598,7 @@ class SearchHTTPServer:
                 return self._page_delete(query)
             if path == "/addurl":
                 return self._page_addurl(query)
+            return self._page_crawlbot(query)
         if path == "/metrics":
             # Prometheus-style exposition for external scrapers: like
             # /search, unauthenticated read-only plumbing
@@ -601,9 +606,6 @@ class SearchHTTPServer:
         if path.startswith("/admin") and not self._authorized(query):
             self.stats["auth_denied"] += 1
             return _json(401, {"error": "bad or missing pwd"})
-        if path in NOT_PORTED:
-            return _json(501, {"error": f"{path} is not ported: ROADMAP "
-                                        f"{NOT_PORTED[path]}"})
         if path in ("/admin", "/admin/"):
             return 200, self._page_admin_index(query), "text/html"
         if path == "/admin/profiler":
@@ -958,13 +960,56 @@ class SearchHTTPServer:
         return _json(200, {"deleted": url})
 
     def _page_addurl(self, query: dict) -> tuple[int, str, str]:
-        """Queue a url for spidering (PageAddUrl.cpp): no spider runs in
-        this package, so a valid request answers 503."""
+        """Queue a url for spidering (PageAddUrl.cpp); 503 when the
+        server has no spider."""
         url = query.get("u") or query.get("url")
         if not url:
             return _json(400, {"error": "missing u"})
         self.stats["addurls"] += 1
-        return _json(503, {"error": "spider not running"})
+        if self.spider is None:
+            return _json(503, {"error": "spider not running"})
+        self.spider.add_url(url)
+        return _json(200, {"queued": url})
+
+    def _page_crawlbot(self, query: dict) -> tuple[int, str, str]:
+        """The REST crawl jobs (PageCrawlBot.cpp): create, status, pause,
+        resume, delete and the job list."""
+        from .crawlbot import CrawlBot
+        # under the core lock, so two first requests build one CrawlBot
+        with self._lock:
+            if self._crawlbot is None:
+                self._crawlbot = CrawlBot(
+                    self.colldb, fetcher_factory=self.crawl_fetcher_factory)
+            bot = self._crawlbot
+        name = query.get("name", "")
+        if not name:
+            return _json(200, {"jobs": bot.list_jobs()})
+        action = query.get("action", "")
+        if action in ("pause", "resume"):
+            job = bot.get(name)
+            if job is None:
+                return _json(404, {"error": "no such job"})
+            job.paused = action == "pause"
+            return _json(200, job.status())
+        if action == "delete":
+            ok = bot.delete(name)
+            return _json(200 if ok else 404, {"deleted": ok})
+        seeds = [u for u in (query.get("seeds", "") or "").replace(
+            ",", " ").split() if u]
+        if seeds:
+            try:
+                job = bot.create(
+                    name, seeds, max_pages=int(query.get("maxpages", 100)),
+                    max_hops=int(query.get("maxhops", 3)),
+                    same_host_only=query.get("spanhosts", "0")
+                    not in ("1", "true"))
+            except ValueError as e:
+                return _json(409, {"error": str(e)})
+            return _json(200, job.status())
+        job = bot.get(name)
+        if job is None:
+            return _json(404, {"error": "no such job"})
+        return _json(200, job.status())
 
     def _page_parms(self, query: dict) -> tuple[int, str, str]:
         """The parameter table, and live updates of the collection's

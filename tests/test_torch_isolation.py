@@ -380,6 +380,93 @@ def test_telemetry_planes_run_with_no_jax_importable(tmp_path):
     assert "ISOLATED" in out.stdout
 
 
+_CRAWL_PROBE = """
+import importlib.abc, json, runpy, sys, tempfile, time
+sys.path.insert(0, {root!r})
+
+
+class NoJax(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        top = name.split(".")[0]
+        if top in ("jax", "jaxlib", "open_source_search_engine_tpu"):
+            raise ImportError(f"{{name}} is blocked in this probe")
+        return None
+
+
+sys.meta_path.insert(0, NoJax())
+for verb in ("crawl", "serve"):
+    sys.argv = ["open_source_search_engine_tpu_torch", verb, "--help"]
+    try:
+        runpy.run_module("open_source_search_engine_tpu_torch",
+                         run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+from open_source_search_engine_tpu_torch import spider
+from open_source_search_engine_tpu_torch.build import convert
+from open_source_search_engine_tpu_torch.serve import crawlbot
+from open_source_search_engine_tpu_torch.serve.server import SearchHTTPServer
+from open_source_search_engine_tpu_torch.serve.tenancy import g_residency
+from open_source_search_engine_tpu_torch.spider import (
+    fetcher, loop, proxies, scheduler, spiderdb)
+from open_source_search_engine_tpu_torch.utils import (
+    dnsresolver, ipresolve, ttlcache, unicodenorm)
+assert dnsresolver.parse_response(dnsresolver.build_query("a.test", 7))[
+    "id"] == 7
+assert ipresolve._pseudo_ip("a.test").startswith("0.")
+assert unicodenorm.resolve_charset("x-sjis") == "shift_jis"
+assert ttlcache.TtlCache().get("k") is None
+assert convert.pdf_text_builtin(
+    b"<< >>stream\\nBT (probe text) Tj ET\\nendstream") == "probe text"
+assert not proxies.ProxyPool([]) and proxies.looks_banned(403, "")
+pages = {{"http://p.test/": '<p>probe words <a href="/b">b</a></p>',
+         "http://p.test/b": "<p>probe beta</p>"}}
+
+
+class Fake(fetcher.Fetcher):
+    def fetch_many(self, urls):
+        return [fetcher.FetchResult(url=u, status=200, content=pages[u],
+                                    content_type="text/html") for u in urls]
+
+
+srv = SearchHTTPServer(tempfile.mkdtemp(), port=0, device="cpu")
+srv.crawl_fetcher_factory = Fake
+code, body, _ = srv.handle("GET", "/crawlbot", dict(
+    name="iso", seeds="http://p.test/", maxpages="5"), b"")
+assert code == 200, body
+deadline = time.monotonic() + 60
+while not json.loads(srv.handle("GET", "/crawlbot", dict(name="iso"),
+                                b"")[1])["done"]:
+    assert time.monotonic() < deadline
+    time.sleep(0.05)
+code, body, _ = srv.handle("GET", "/search", dict(q="probe", c="crawl_iso"),
+                           b"")
+assert code == 200 and '"totalMatches": 2' in body, body
+assert srv.handle("GET", "/crawlbot", dict(name="iso", action="delete"),
+                  b"")[0] == 200
+srv.stop()
+g_residency.reset()
+bad = [m for m in sys.modules
+       if m.split(".")[0] in ("jax", "jaxlib", "open_source_search_engine_tpu")]
+assert not bad, bad
+print("ISOLATED")
+"""
+
+
+def test_crawl_plane_runs_with_no_jax_importable(tmp_path):
+    """Every module of the crawl plane imports, and a crawlbot job runs
+    and is searched and deleted, with JAX and the JAX package
+    unimportable; the ``crawl`` verb's and ``serve --spider``'s help
+    print."""
+    out = subprocess.run(
+        [sys.executable, "-c", _CRAWL_PROBE.format(root=str(ROOT))],
+        capture_output=True, text=True, cwd=tmp_path, env=_clean_env(),
+        timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "ISOLATED" in out.stdout
+    assert "--seeds" in out.stdout and "--max-pages" in out.stdout
+    assert "--spider" in out.stdout
+
+
 _DOCTOR_PROBE = """
 import importlib.abc, runpy, sys
 sys.path.insert(0, {root!r})

@@ -44,8 +44,8 @@ from open_source_search_engine_tpu_torch.corpus import (
 from open_source_search_engine_tpu_torch.query import engine
 from open_source_search_engine_tpu_torch.query.speller import Speller
 from open_source_search_engine_tpu_torch.serve import admission
-from open_source_search_engine_tpu_torch.serve.server import (
-    NOT_PORTED, SearchHTTPServer)
+from open_source_search_engine_tpu_torch.serve.server import \
+    SearchHTTPServer
 from open_source_search_engine_tpu_torch.serve.tenancy import g_residency
 from open_source_search_engine_tpu_torch.utils.stats import g_stats
 from tests import jax_gc
@@ -393,33 +393,30 @@ class TestEdge:
         assert srv.stats["errors"] == 1
 
     @pytest.mark.parametrize("path", sorted(
-        set(NOT_PORTED) | {"/admin/hosts", "/admin/transport",
-                           "/admin/perf", "/admin/jit", "/admin/hbm",
-                           "/admin/device", "/admin/profiler",
-                           "/admin/graph"}))
+        {"/crawlbot", "/admin/hosts", "/admin/transport", "/admin/perf",
+         "/admin/jit", "/admin/hbm", "/admin/device", "/admin/profiler",
+         "/admin/graph"}))
     def test_left_out_endpoints_answer_501(self, servers, path):
+        """Every endpoint once left out (answering 501) is ported now:
+        /crawlbot with the crawl plane and /admin/hosts with the mesh,
+        the reference's answer; /admin/transport and /admin/perf with the
+        cluster, and the telemetry pages with the telemetry plane, the
+        reference's status, type and JSON keys (the counters in them are
+        each package's own)."""
         code, body, ctype = _get(servers[1], path)
-        if path not in NOT_PORTED:
-            # ported since: /admin/hosts with the mesh, the reference's
-            # answer; /admin/transport and /admin/perf with the cluster,
-            # and the telemetry pages with the telemetry plane, the
-            # reference's status, type and JSON keys (the counters in
-            # them are each package's own)
-            jcode, jbody, jctype = _get(servers[0], path)
-            assert (code, ctype) == (jcode, jctype) and code == 200
-            if path == "/admin/hosts":
-                assert json.loads(body) == json.loads(jbody)
-                return
-            if path == "/admin/graph":
-                assert body.startswith("<svg") and jbody.startswith("<svg")
-                return
-            q = {"sample": "report"} if path == "/admin/profiler" \
-                else {"format": "json"}
-            tj, jj = (json.loads(_get(srv, path, **q)[1])
-                      for srv in (servers[1], servers[0]))
-            assert sorted(tj) == sorted(jj), (sorted(tj), sorted(jj))
+        jcode, jbody, jctype = _get(servers[0], path)
+        assert (code, ctype) == (jcode, jctype) and code == 200
+        if path in ("/admin/hosts", "/crawlbot"):
+            assert json.loads(body) == json.loads(jbody)
             return
-        assert code == 501 and "ROADMAP" in json.loads(body)["error"]
+        if path == "/admin/graph":
+            assert body.startswith("<svg") and jbody.startswith("<svg")
+            return
+        q = {"sample": "report"} if path == "/admin/profiler" \
+            else {"format": "json"}
+        tj, jj = (json.loads(_get(srv, path, **q)[1])
+                  for srv in (servers[1], servers[0]))
+        assert sorted(tj) == sorted(jj), (sorted(tj), sorted(jj))
 
     @pytest.mark.parametrize("path", [
         "/", "/admin", "/admin/stats", "/admin/mem", "/admin/cache",
