@@ -1,0 +1,8 @@
+"""Milliseconds per query in the program's ``query.results_batch`` span over the
+traced window (its stage total)."""
+
+from portbench.reduce import per_query_ms
+
+
+def read(run):
+    return per_query_ms(run, "query.results_batch")
