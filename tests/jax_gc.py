@@ -6,10 +6,10 @@ cycle (the cache's generation function closes over the collection that
 holds the index), and ``Cache.__del__`` sets a membudget gauge under
 that package's non-reentrant lock. When the cyclic collector frees such
 a cache inside a locked membudget section of the same thread, the thread
-waits on itself forever (ROADMAP §3). :func:`quiet` collects before and
-after a block, with no lock held, and keeps the collector off inside it,
-so a test never leaves that garbage behind or collects it under the
-lock.
+waits on itself forever (ROADMAP, recorded departure 11). :func:`quiet`
+collects before and after a block, with no lock held, and keeps the
+collector off inside it, so a test never leaves that garbage behind or
+collects it under the lock.
 
 A stopped server is not garbage yet: its QueryBatcher's worker thread
 and pool threads still reach it until they end. :func:`release` waits
