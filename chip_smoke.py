@@ -1575,9 +1575,9 @@ def mesh(colldb, coll, queries, work, reset_counts, card):
         dfs and presence, as ``DeviceIndex.plan`` draws them."""
         plans = []
         for g in compile_query(q).groups:
-            dfs = [di._df_of(sub.termid) for sub in g.sublists]
-            pres = [bool(di._druns_of(sub.termid)) and d > 0
-                    for sub, d in zip(g.sublists, dfs)]
+            runs, dfs = di._resolve(np.array(
+                [sub.termid for sub in g.sublists], np.uint64))
+            pres = [bool(r) and d > 0 for r, d in zip(runs, dfs)]
             plans.append(g.slot_plan(di.P, present=pres, df=dfs))
         return plans
     flat_plans = {q: slot_plans(flat_di, q) for q in queries}

@@ -44,7 +44,9 @@ plane (``devindex.plan.<collection>``), keyed on (raw, lang) and
 generation-keyed on the posdb and fielddb versions, so a repeated query
 skips the host planning pass until a write. An escalation widens a
 cached plan's ``kappa_min``/``k2_min`` in place, so a hot query's
-learned floor persists, as in the reference.
+learned floor persists, as in the reference. The batch's misses are
+planned together (``plan_batch``): their sublists' distinct termids meet
+the term directories in one vectorized search per directory.
 
 Guardrails (``devcheck``, opt-in): the top-k invariants on every emitted
 wave row, and cube sanity on the resident cube before each FD wave.
@@ -807,6 +809,12 @@ class DeviceIndex:
             c_starts[slot] = a
             c_lens[slot] = b - a
             self.cube_slot_of[int(self.dir_termids[ti])] = slot
+        # the same slots by directory position, for the planner's
+        # vectorized lookup (-1 where the term has none)
+        self.dir_dense_slot = np.full(len(self.dir_termids), -1, np.int32)
+        self.dir_dense_slot[dense_terms] = np.arange(len(dense_terms))
+        self.dir_cube_slot = np.full(len(self.dir_termids), -1, np.int32)
+        self.dir_cube_slot[cube_terms] = np.arange(len(cube_terms))
 
         # device columns: base + preallocated delta tail
         self.h_doc_col = doc_col
@@ -873,6 +881,7 @@ class DeviceIndex:
         self.tomb_df = np.zeros(len(self.dir_termids), np.int64)
         dead = np.zeros(self.D_cap, bool)
         if not len(mem):
+            self.live_base_df = self.base_df.astype(np.int64)
             self._set_empty_delta()
             self.d_dead = self._put(dead)
             self.delta_rebuilds += 1
@@ -926,6 +935,8 @@ class DeviceIndex:
                 inb = ppos < len(run)
                 inb[inb] = run[ppos[inb]] == d[inb]
                 self.tomb_df[term_i] = int(inb.sum())
+        #: each base term's df with its superseded-doc pairs taken off
+        self.live_base_df = self.base_df.astype(np.int64) - self.tomb_df
 
         upd_idx = np.empty(0, np.int32)
         upd_sr = upd_dl = upd_idx
@@ -1176,31 +1187,6 @@ class DeviceIndex:
 
     # --- planning ----------------------------------------------------------
 
-    def _druns_of(self, termid: int):
-        """[(is_base, dstart, dlen, dense_slot, cube_slot, pstart, plen)]
-        runs for a termid: doc-column run + posting-column run, with the
-        dense/cube row slots (-1 when absent)."""
-        out = []
-        i = int(np.searchsorted(self.dir_termids, np.uint64(termid)))
-        if i < len(self.dir_termids) and self.dir_termids[i] == termid:
-            a, b = int(self.dir_dstart[i]), int(self.dir_dstart[i + 1])
-            if b > a:
-                pa, pb = int(self.dir_pstart[i]), int(self.dir_pstart[i + 1])
-                out.append((True, a, b - a,
-                            self.dense_slot_of.get(termid, -1),
-                            self.cube_slot_of.get(termid, -1),
-                            pa, pb - pa))
-        j = int(np.searchsorted(self.dir2_termids, np.uint64(termid)))
-        if j < len(self.dir2_termids) and self.dir2_termids[j] == termid:
-            a, b = int(self.dir2_dstart[j]), int(self.dir2_dstart[j + 1])
-            if b > a:
-                # delta doc/posting columns live past Mb / Nb
-                pa, pb = int(self.dir2_pstart[j]), \
-                    int(self.dir2_pstart[j + 1])
-                out.append((False, self.Mb + a, b - a, -1, -1,
-                            self.Nb + pa, pb - pa))
-        return out
-
     @property
     def df_generation(self):
         """The posdb version this resident base was built at: the memo
@@ -1209,28 +1195,89 @@ class DeviceIndex:
         base moves)."""
         return self._built_version
 
+    def _resolve(self, termids: np.ndarray) -> tuple[list, list]:
+        """Each of ``termids`` (uint64, any order) against both term
+        directories, one vectorized search per directory. Returns per
+        term its runs, ``[(is_base, dstart, dlen, dense_slot, cube_slot,
+        pstart, plen)]`` (the base run before the delta run, each only
+        where the term has doc pairs there; delta columns live past Mb /
+        Nb; slots -1 where absent), and its exact document frequency
+        under pending deletes and re-adds: base df − superseded-doc pairs
+        + delta df, at least 0."""
+        runs: list[list] = [[] for _ in range(len(termids))]
+        df = np.zeros(len(termids), np.int64)
+        for is_base, dirs, dstart, pstart, dir_df, d_off, p_off in (
+                (True, self.dir_termids, self.dir_dstart, self.dir_pstart,
+                 self.live_base_df, 0, 0),
+                (False, self.dir2_termids, self.dir2_dstart,
+                 self.dir2_pstart, self.delta_df, self.Mb, self.Nb)):
+            i = np.searchsorted(dirs, termids)
+            hit = i < len(dirs)
+            hit[hit] = dirs[i[hit]] == termids[hit]
+            u, i = np.nonzero(hit)[0], i[hit]
+            df[u] += dir_df[i]
+            # dense and cube rows hold base runs only
+            none = np.full(len(i), -1, np.int32)
+            dslot = self.dir_dense_slot[i] if is_base else none
+            cslot = self.dir_cube_slot[i] if is_base else none
+            dlen = dstart[i + 1] - dstart[i]
+            has = dlen > 0
+            for row in zip(u[has].tolist(), (dstart[i] + d_off)[has].tolist(),
+                           dlen[has].tolist(), dslot[has].tolist(),
+                           cslot[has].tolist(),
+                           (pstart[i] + p_off)[has].tolist(),
+                           (pstart[i + 1] - pstart[i])[has].tolist()):
+                runs[row[0]].append((is_base, *row[1:]))
+        return runs, np.maximum(df, 0).tolist()
+
     def _df_of(self, termid: int) -> int:
-        """Exact document frequency under pending deletes and re-adds:
-        base df − superseded-doc pairs + delta df."""
-        df = 0
-        i = int(np.searchsorted(self.dir_termids, np.uint64(termid)))
-        if i < len(self.dir_termids) and self.dir_termids[i] == termid:
-            df += int(self.base_df[i]) - int(self.tomb_df[i])
-        j = int(np.searchsorted(self.dir2_termids, np.uint64(termid)))
-        if j < len(self.dir2_termids) and self.dir2_termids[j] == termid:
-            df += int(self.delta_df[j])
-        return max(df, 0)
+        """One term's exact document frequency (``_resolve``'s)."""
+        return self._resolve(np.array([termid], np.uint64))[1][0]
 
     def plan(self, qplan: QueryPlan, df_of=None,
              total_docs: int | None = None,
              sort_base_of=None) -> ResidentPlan:
-        """The host plan of one query: its dense, sparse, cube and
-        posting-scatter rows, group flags, route eligibility and numeric
-        operators. ``df_of``, ``total_docs`` and ``sort_base_of``
-        override this index's term document frequencies, doc count and
-        sort-key base: a mesh passes the cluster-wide values, so every
-        shard weighs terms alike and cross-shard scores merge (the
-        reference ships global termFreqWeights in the Msg39 request)."""
+        """The host plan of one query: :meth:`plan_batch` of one."""
+        return self.plan_batch([qplan], df_of=df_of, total_docs=total_docs,
+                               sort_base_of=sort_base_of)[0]
+
+    def plan_batch(self, qplans: list[QueryPlan], df_of=None,
+                   total_docs: int | None = None,
+                   sort_base_of=None) -> list[ResidentPlan]:
+        """The host plans of a batch of queries: every sublist's distinct
+        termid resolved against the term directories at once
+        (``_resolve``), then each query planned from those arrays.
+        ``df_of``, ``total_docs`` and ``sort_base_of`` override this
+        index's term document frequencies, doc count and sort-key base: a
+        mesh passes the cluster-wide values, so every shard weighs terms
+        alike and cross-shard scores merge (the reference ships global
+        termFreqWeights in the Msg39 request); ``df_of`` is called once
+        per distinct termid."""
+        tids = [s.termid for qp in qplans for g in qp.groups
+                for s in g.sublists]
+        terms, inv = np.unique(np.array(tids, np.uint64),
+                               return_inverse=True)
+        g_stats.count("devindex.plan.sublists", len(tids))
+        g_stats.count("devindex.plan.terms", len(terms))
+        runs, live_df = self._resolve(terms)
+        gdfs = live_df if df_of is None else \
+            [df_of(t) for t in terms.tolist()]
+        inv = inv.tolist()
+        plans, k = [], 0
+        for qp in qplans:
+            n = sum(len(g.sublists) for g in qp.groups)
+            plans.append(self._plan_query(qp, inv[k:k + n], runs, live_df,
+                                          gdfs, total_docs, sort_base_of))
+            k += n
+        return plans
+
+    def _plan_query(self, qplan: QueryPlan, ks: list, runs: list,
+                    live_df: list, gdfs: list, total_docs: int | None,
+                    sort_base_of) -> ResidentPlan:
+        """One query's plan: its dense, sparse, cube and posting-scatter
+        rows, group flags, route eligibility and numeric operators.
+        ``ks[j]`` indexes the resolved ``runs``, ``live_df`` and ``gdfs``
+        (the df that weighs the group) of the query's j-th sublist."""
         T = _bucket(max(len(qplan.groups), 1), T_FLOOR)
         drows, srows, crows, prows = [], [], [], []
         dfs = np.zeros(max(len(qplan.groups), 1), np.int64)
@@ -1243,21 +1290,23 @@ class DeviceIndex:
         g_quarter = np.full((T, 4), zq, np.int32)
         g_qsyn = np.zeros((T, 4), np.uint32)
         direct_ok = True
+        at = 0
         for g_i, g in enumerate(qplan.groups):
             subs = g.sublists
-            sub_druns = [self._druns_of(s.termid) for s in subs]
+            g_ks = ks[at:at + len(subs)]
+            at += len(subs)
+            sub_druns = [runs[u] for u in g_ks]
             # quota only over sublists with LIVE postings (df under
             # tombstones), as the host packer's fetched-list mask, and
             # the local live dfs fund the variants on both paths (never
             # the cluster-wide df_of: the host path cannot see it)
-            sub_live_df = [self._df_of(s.termid) for s in subs]
+            sub_live_df = [live_df[u] for u in g_ks]
             sp = g.slot_plan(
                 self.P,
                 present=[bool(d) and ldf > 0
                          for d, ldf in zip(sub_druns, sub_live_df)],
                 df=sub_live_df)
             any_postings = False
-            gdf = 0
             g_runs = []
             for s_i, sub in enumerate(subs):
                 syn = 1 if sub.kind == SUB_SYNONYM else 0
@@ -1282,7 +1331,7 @@ class DeviceIndex:
                                           min(pl - off, F2_SCATTER_MAX),
                                           g_i, base, quota, syn, is_base))
                     any_postings = True
-                gdf = max(gdf, (df_of or self._df_of)(sub.termid))
+            gdf = max([0] + [gdfs[u] for u in g_ks])
             dfs[g_i] = gdf
             groups_have_postings.append(any_postings)
             # FD: cube runs must be base runs at quarter-aligned (base,
@@ -1403,18 +1452,27 @@ class DeviceIndex:
                 # landing meanwhile leaves the stored entries dead, never
                 # a pre-write plan passing as fresh
                 pgen = self._plan_cache.current_gen()
-                plans = []
-                for qp in qplans:
+                plans = [None] * len(qplans)
+                # the misses, one plan per distinct key, planned together
+                miss: dict[tuple, list[int]] = {}
+                for i, qp in enumerate(qplans):
                     ck = (qp.raw, qp.lang)
                     hit, p = self._plan_cache.lookup(ck, gen=pgen)
-                    if not hit:
-                        p = self.plan(qp)
+                    if hit:
+                        plans[i] = p
+                    else:
+                        miss.setdefault(ck, []).append(i)
+                if miss:
+                    fresh = self.plan_batch([qplans[ix[0]]
+                                             for ix in miss.values()])
+                    for (ck, ix), p in zip(miss.items(), fresh):
                         self._plan_cache.put(ck, p, gen=pgen)
-                    plans.append(p)
+                        for i in ix:
+                            plans[i] = p
             else:
-                plans = [self.plan(qp, df_of=df_of, total_docs=total_docs,
-                                   sort_base_of=sort_base_of)
-                         for qp in qplans]
+                plans = self.plan_batch(qplans, df_of=df_of,
+                                        total_docs=total_docs,
+                                        sort_base_of=sort_base_of)
         live = [i for i, p in enumerate(plans) if p.matchable]
         results = [(np.empty(0, np.uint64), np.empty(0, np.float32), 0)
                    ] * len(plans)

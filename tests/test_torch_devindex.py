@@ -48,6 +48,7 @@ from open_source_search_engine_tpu_torch.query.compiler import compile_query
 from open_source_search_engine_tpu_torch.query.devindex import DeviceIndex
 from open_source_search_engine_tpu_torch.serve.tenancy import \
     g_residency as residency
+from open_source_search_engine_tpu_torch.utils.stats import g_stats
 from tests import jax_gc
 from tests.golden.corpus import GOLDEN_QUERIES, golden_docs
 from tests.test_golden import _check
@@ -68,6 +69,10 @@ def _gc_quiet():
 RTOL = 1e-5
 ROUTE_SET = list(ROUTE_QUERIES) + ["alpha gamma", "alpha beta gamma",
                                    "beta", "dogs", "gamma -zeta"]
+#: a batch in which ``alpha`` recurs across queries and one query comes
+#: twice
+REPEAT_BATCH = ["alpha beta", "alpha gamma", "alpha beta", "beta",
+                "alpha beta gamma"]
 COLUMNS = ("payload", "docc", "doc", "imp", "rs", "cnt", "dense_imp",
            "dense_rs", "dense_cnt", "cube", "siterank", "doclang", "dead")
 
@@ -133,6 +138,27 @@ def _plans_equal(jp, tp, label):
             assert a == b, (label, f.name, a, b)
 
 
+def _batch_plans_equal(jdi, tdi, queries, label, **kw):
+    """The plans one ``issue_batch`` builds for ``queries`` (the port's
+    batch planner; its plan cache emptied before and after) against the
+    reference's plan of each query alone."""
+    tdi._plan_cache.flush()
+    try:
+        pending = tdi.issue_batch(queries, topk=16, **kw)
+        assert len(pending.plans) == len(queries), label
+        for q, tp in zip(queries, pending.plans):
+            _plans_equal(jdi.plan(jcompile(q), **kw), tp, (label, q))
+        tdi.collect_batch(pending)
+    finally:
+        tdi._plan_cache.flush()
+    return pending
+
+
+def _sublist_termids(queries) -> list[int]:
+    return [s.termid for q in queries for g in compile_query(q).groups
+            for s in g.sublists]
+
+
 # Each test loops over its queries and columns rather than parametrizing
 # them: the tier-1 run schedules whole files by test count, largest
 # first, and a file of a few tests keeps to the end of that order.
@@ -156,11 +182,59 @@ def test_directories_match(pairs):
 
 
 @pytest.mark.parametrize("corpus,queries", [("route", ROUTE_SET),
-                                            ("golden", GOLDEN_QUERIES)])
+                                            ("golden", GOLDEN_QUERIES),
+                                            ("route", REPEAT_BATCH)])
 def test_plans_match(pairs, corpus, queries):
+    """Each query planned alone, and the whole list planned as one batch
+    by ``issue_batch``, equal the reference's plan field by field."""
     jdi, tdi = pairs[corpus]
     for q in queries:
         _plans_equal(jdi.plan(jcompile(q)), tdi.plan(compile_query(q)), q)
+    pending = _batch_plans_equal(jdi, tdi, queries, corpus)
+    # a query that comes twice is planned once
+    for i, q in enumerate(queries):
+        assert pending.plans[i] is pending.plans[queries.index(q)], q
+
+
+@pytest.mark.parametrize("corpus", ["route", "golden"])
+def test_plans_match_under_mesh_override(pairs, corpus):
+    """A mesh's cluster-wide ``df_of`` and ``total_docs``, the same
+    callable given to both packages: equal plans, alone and batched, and
+    the batch asks ``df_of`` once per distinct termid."""
+    jdi, tdi = pairs[corpus]
+    queries = (ROUTE_SET if corpus == "route" else GOLDEN_QUERIES) \
+        + REPEAT_BATCH
+    calls = []
+
+    def df_of(termid):
+        calls.append(termid)
+        return 3 * jdi._df_of(termid) + 1
+    kw = dict(df_of=df_of, total_docs=5 * tdi.coll.num_docs + 3)
+    for q in queries:
+        _plans_equal(jdi.plan(jcompile(q), **kw),
+                     tdi.plan(compile_query(q), **kw), (corpus, q))
+    _batch_plans_equal(jdi, tdi, queries, corpus, **kw)
+    calls.clear()
+    tdi.collect_batch(tdi.issue_batch(queries, topk=16, **kw))
+    assert sorted(calls) == sorted(set(_sublist_termids(queries)))
+
+
+def test_plan_counters_count_a_batch(pairs):
+    """``devindex.plan.sublists`` counts the sublists a batch resolves and
+    ``devindex.plan.terms`` its distinct termids; a repeated query is
+    planned once."""
+    tdi = pairs["route"][1]
+    names = ("devindex.plan.sublists", "devindex.plan.terms")
+    tids = _sublist_termids(dict.fromkeys(REPEAT_BATCH))
+    assert len(set(tids)) < len(tids)
+    tdi._plan_cache.flush()
+    before = [g_stats.counters.get(n, 0) for n in names]
+    try:
+        tdi.issue_batch(REPEAT_BATCH, topk=16)
+    finally:
+        tdi._plan_cache.flush()
+    assert [g_stats.counters.get(n, 0) - b for n, b in zip(names, before)] \
+        == [len(tids), len(set(tids))]
 
 
 def test_routes_and_escalations_match(pairs):
@@ -272,6 +346,7 @@ def test_delta_refresh_matches_reference(tmp_path):
         for q in queries:
             _plans_equal(jdi.plan(jcompile(q)), tdi.plan(compile_query(q)),
                          (step, q))
+        _batch_plans_equal(jdi, tdi, queries + queries[:2], step)
         for q, a, b in zip(queries, tdi.search_batch(queries, topk=16),
                            jdi.search_batch(queries, topk=16)):
             assert_tie_run_parity(a, b, (step, q))
