@@ -119,10 +119,16 @@ class QueryBatcher:
 
     Requests enqueue and wait; a single worker drains the queue in
     same-key batches of at most MAX_B and hands each to a pool of two,
-    so batch N's page build overlaps batch N+1's device waves. An error
-    reaches every waiter of the failing batch."""
+    so batch N's page build overlaps batch N+1's device waves. While
+    both are busy the queue is held, so that the requests arriving
+    meanwhile ride one batch instead of queueing behind the pool one by
+    one. Each waiter sleeps on its own event, woken only by its batch.
+    An error reaches every waiter of the failing batch."""
 
     MAX_B = 64
+    #: batches dispatched at once: one in its device waves while the
+    #: other builds its page
+    WORKERS = 2
     WINDOW_S = 0.002  # brief collect window while a wave is in flight
     #: bounded admission: an overload burst fails fast with QueueFull
     #: (the serve edge sheds stale-or-503) instead of growing host memory
@@ -134,14 +140,15 @@ class QueryBatcher:
         #: run_batch((coll_name, topk, offset), [queries]) → [results]
         self._run_batch = run_batch
         self._cv = threading.Condition()
-        #: (key, query, holder, parent span, deadline, tier, tenant)
+        #: (key, query, holder, parent span, deadline, tier, tenant,
+        #: enqueue time)
         self._queue: list[tuple] = []
         self._inflight = 0  # batches currently dispatched
         self._alive = True
         #: batches dispatched and queries in them (chip smoke reads both)
         self.batches = 0
         self.batched_queries = 0
-        self._pool = ThreadPoolExecutor(2)
+        self._pool = ThreadPoolExecutor(self.WORKERS)
         self._thread = threads.spawn("query-batcher", self._loop)
 
     @property
@@ -153,7 +160,7 @@ class QueryBatcher:
         with self._cv:
             self._alive = False
             for e in self._queue:
-                e[2]["err"] = RuntimeError("query batcher stopped")
+                _answer(e[2], "err", RuntimeError("query batcher stopped"))
             self._queue.clear()
             self._gauge_locked()
             self._cv.notify_all()
@@ -164,7 +171,7 @@ class QueryBatcher:
             "serve", self, len(self._queue) * self.QUEUE_ENTRY_COST)
 
     def search(self, key: tuple, q: str, timeout: float = 60.0):
-        holder: dict = {}
+        holder: dict = {"done": threading.Event()}
         # the wait ends at its own timeout or the query's deadline,
         # whichever is sooner
         dl = deadline_mod.current()
@@ -177,17 +184,18 @@ class QueryBatcher:
                 raise priority_mod.QueueFull("query batcher queue full")
             self._queue.append((key, q, holder, trace_mod.current_span(), dl,
                                 priority_mod.current_tier(),
-                                priority_mod.current_tenant()))
+                                priority_mod.current_tenant(),
+                                time.perf_counter()))
             self._gauge_locked()
             self._cv.notify_all()
-            while "res" not in holder and "err" not in holder:
-                left = deadline.remaining()
-                if left <= 0:
-                    if dl is not None and dl.expired():
-                        raise deadline_mod.DeadlineExceeded(
-                            "query deadline exceeded in batcher")
-                    raise TimeoutError("query batcher timeout")
-                self._cv.wait(timeout=left)
+        while not holder["done"].is_set():
+            left = deadline.remaining()
+            if left <= 0:
+                if dl is not None and dl.expired():
+                    raise deadline_mod.DeadlineExceeded(
+                        "query deadline exceeded in batcher")
+                raise TimeoutError("query batcher timeout")
+            holder["done"].wait(timeout=left)
         if "err" in holder:
             raise holder["err"]
         return holder["res"]
@@ -196,6 +204,9 @@ class QueryBatcher:
         while True:
             with self._cv:
                 while self._alive and not self._queue:
+                    self._cv.wait()
+                # every worker busy: hold the queue until one frees
+                while self._alive and self._inflight >= self.WORKERS:
                     self._cv.wait()
                 if not self._alive:
                     return
@@ -230,7 +241,7 @@ class QueryBatcher:
                 with self._cv:
                     self._inflight -= 1
                     for e in batch:
-                        e[2]["err"] = exc
+                        _answer(e[2], "err", exc)
                     self._cv.notify_all()
                 return
 
@@ -243,6 +254,11 @@ class QueryBatcher:
                 self._cv.notify_all()  # wake the fill-or-flush window
 
     def _run_one_inner(self, key, batch) -> None:
+        # each request's wait, from its arrival to its batch's start
+        t_disp = time.perf_counter()
+        for e in batch:
+            with trace_mod.attach(e[3]):
+                trace_mod.record("serve.batch_wait", e[7], t_disp)
         try:
             # a pool thread has an empty contextvars context: re-attach
             # the first traced waiter's span, and mark the other waiters'
@@ -268,15 +284,17 @@ class QueryBatcher:
             for p in parents[1:]:
                 p.record("query.device_batch", t0, coalesced=True,
                          batch=len(batch))
-            with self._cv:
-                for e, r in zip(batch, res):
-                    e[2]["res"] = r
-                self._cv.notify_all()
+            for e, r in zip(batch, res):
+                _answer(e[2], "res", r)
         except Exception as exc:  # noqa: BLE001 — waiters must wake
-            with self._cv:
-                for e in batch:
-                    e[2]["err"] = exc
-                self._cv.notify_all()
+            for e in batch:
+                _answer(e[2], "err", exc)
+
+
+def _answer(holder: dict, kind: str, value) -> None:
+    """Give a batcher waiter its result or error, and wake it."""
+    holder[kind] = value
+    holder["done"].set()
 
 
 class NodeHTTPServer(ThreadingHTTPServer):
@@ -892,9 +910,11 @@ class SearchHTTPServer:
             trace_mod.tag(results="degraded")
         if answered is not None and res.generation is not None:
             answered["generation"] = res.generation
-        payload, ctype = render_results(
-            res, fmt,
-            trace_id=tr.trace_id if (debug and tr is not None) else None)
+        with trace_mod.span("serve.render"):
+            payload, ctype = render_results(
+                res, fmt,
+                trace_id=tr.trace_id if (debug and tr is not None)
+                else None)
         return 200, payload, ctype
 
     def _page_get(self, query: dict) -> tuple[int, str, str]:
@@ -1794,6 +1814,13 @@ class SearchHTTPServer:
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
+            # keep-alive: HTTP/1.0 (the default) closes the connection
+            # after every response. Headers and body go out as two
+            # writes, so Nagle is off, else the body would wait for the
+            # peer's delayed ACK on every kept-alive request
+            protocol_version = "HTTP/1.1"
+            disable_nagle_algorithm = True
+
             def log_message(self, fmt, *args):  # route to our logger
                 log.debug("%s " + fmt, self.client_address[0], *args)
 
