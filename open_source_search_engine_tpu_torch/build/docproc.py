@@ -750,31 +750,55 @@ def remove_document(coll: Collection, url: str, _count: bool = True,
 
 def get_document(coll: Collection, url: str | None = None,
                  docid: int | None = None) -> dict | None:
-    """TitleRec lookup by url or docid, behind the collection's parsed
-    titlerec cache (docid lookups only)."""
-    want = None
-    if docid is None:
-        assert url is not None
-        full = normalize(url).full
-        docid = ghash.doc_id(full)
-        want = titledb.urlhash32(full)
-    elif docid in coll.titlerec_cache:
-        return coll.titlerec_cache[docid]
+    """TitleRec lookup by url or docid. By docid it is
+    :func:`get_documents` of one, behind the collection's parsed titlerec
+    cache; by url the docid's records are told apart by url hash."""
+    if docid is not None:
+        return get_documents(coll, [docid])[0][int(docid)]
+    full = normalize(url).full
+    docid = ghash.doc_id(full)
     lst = coll.titledb.get_list(titledb.start_key(docid),
                                 titledb.end_key(docid))
-    rec = None
-    if len(lst):
-        idx = len(lst) - 1
-        if want is not None:  # docid-collision discrimination
-            match = np.nonzero(
-                titledb.unpack_key(lst.keys)["urlhash32"]
-                == np.uint64(want))[0]
-            idx = int(match[-1]) if len(match) else -1
-        if idx >= 0:
-            payload = lst.payload(idx)
+    # docid-collision discrimination
+    match = np.nonzero(titledb.unpack_key(lst.keys)["urlhash32"]
+                       == np.uint64(titledb.urlhash32(full)))[0]
+    if not len(match):
+        return None
+    payload = lst.payload(int(match[-1]))
+    return titledb.read_title_rec(payload) if payload else None
+
+
+def get_documents(coll: Collection, docids) -> tuple[dict, int]:
+    """TitleRecs by docid: those in the collection's parsed titlerec
+    cache from it, the others with one sorted titledb read
+    (``Rdb.get_ranges``: one search of each run and memtable segment,
+    the merge rules of ``get_list``), each docid's last record parsed
+    once and put in the cache. Returns ({docid: record or None}, the
+    number of docids read from titledb)."""
+    cache = coll.titlerec_cache
+    out: dict[int, dict | None] = {}
+    miss = []
+    for d in docids:
+        d = int(d)
+        if d in cache:
+            out[d] = cache[d]
+        else:
+            miss.append(d)
+    if not miss:
+        return out, 0
+    want = np.unique(np.array(miss, np.uint64))
+    lst = coll.titledb.get_ranges(titledb.start_key(want),
+                                  titledb.end_key(want))
+    got = np.ascontiguousarray(lst.keys["n1"])
+    # each docid's last record
+    last = np.searchsorted(got, want, side="right") - 1
+    for d, i in zip(want.tolist(), last.tolist()):
+        rec = None
+        if i >= 0 and int(got[i]) == d:
+            payload = lst.payload(i)
             rec = titledb.read_title_rec(payload) if payload else None
-    if want is None:
-        if len(coll.titlerec_cache) >= coll.titlerec_cache_max:
-            coll.titlerec_cache.clear()
-        coll.titlerec_cache[docid] = rec
-    return rec
+        if len(cache) >= coll.titlerec_cache_max:
+            cache.clear()
+        cache[d] = rec
+        out[d] = rec
+    return out, len(want)

@@ -98,30 +98,43 @@ def key_sort_order(keys: np.ndarray) -> np.ndarray:
 def searchsorted_keys(sorted_keys: np.ndarray, probe: np.ndarray,
                       side: str = "left") -> np.ndarray:
     """Searchsorted over structured keys: a binary search comparing
-    (most significant, …, least significant) field tuples. It reads
-    O(log n) records in place — a run may be a multi-GB mmap, and
-    ``np.searchsorted`` on a strided field view copies the whole
-    column per call."""
+    (most significant, …, least significant) field tuples, every probe
+    on one ``side``: :func:`searchsorted_keys_many`."""
     probe = np.atleast_1d(probe)
+    return searchsorted_keys_many(sorted_keys, probe,
+                                  np.full(len(probe), side == "right"))
+
+
+def searchsorted_keys_many(sorted_keys: np.ndarray, probes: np.ndarray,
+                           right: np.ndarray) -> np.ndarray:
+    """Searchsorted of many probes at once over structured keys,
+    ``right[i]`` choosing probe i's side: in one native call, or one
+    numpy binary search that moves every probe a step per round. A round
+    reads one record a probe in place, O(probes · log n) records in all:
+    a run may be a multi-GB mmap, and ``np.searchsorted`` on a strided
+    field view copies the whole column per call."""
     if native.available():
-        return np.array([native.searchsorted(sorted_keys, probe[i:i + 1],
-                                             side)
-                         for i in range(len(probe))], dtype=np.int64)
+        return native.searchsorted_many(sorted_keys, probes, right)
+    sorted_keys = np.asarray(sorted_keys)
+    n = len(sorted_keys)
+    lo = np.zeros(len(probes), np.int64)
+    hi = np.full(len(probes), n, np.int64)
     fields = tuple(reversed(sorted_keys.dtype.names))
-    cols = [sorted_keys[f] for f in fields]
-    out = np.zeros(len(probe), dtype=np.int64)
-    for i in range(len(probe)):
-        target = tuple(int(probe[i][f]) for f in fields)
-        lo, hi = 0, len(sorted_keys)
-        while lo < hi:
-            mid = (lo + hi) // 2
-            k = tuple(int(c[mid]) for c in cols)
-            if k < target or (side == "right" and k == target):
-                lo = mid + 1
-            else:
-                hi = mid
-        out[i] = lo
-    return out
+    want = [probes[f] for f in fields]
+    while True:
+        live = lo < hi
+        if not live.any():
+            return lo
+        mid = (lo + hi) >> 1
+        rec = sorted_keys[np.minimum(mid, n - 1)]
+        less = np.zeros(len(probes), bool)
+        same = np.ones(len(probes), bool)
+        for f, w in zip(fields, want):
+            less |= same & (rec[f] < w)
+            same &= rec[f] == w
+        up = live & (less | (same & right))
+        lo = np.where(up, mid + 1, lo)
+        hi = np.where(live & ~up, mid, hi)
 
 
 def keys_sorted(keys: np.ndarray) -> bool:
@@ -202,12 +215,36 @@ class RecordBatch:
 
     def range(self, start_key: np.ndarray, end_key: np.ndarray
               ) -> "RecordBatch":
-        """Records with start_key <= key <= end_key."""
-        lo = int(searchsorted_keys(self.keys, start_key.reshape(1),
-                                   "left")[0])
-        hi = int(searchsorted_keys(self.keys, end_key.reshape(1),
-                                   "right")[0])
-        return self.slice(lo, hi)
+        """Records with start_key <= key <= end_key: :meth:`ranges` of
+        one."""
+        return self.ranges(start_key.reshape(1), end_key.reshape(1))
+
+    def ranges(self, start_keys: np.ndarray, end_keys: np.ndarray
+               ) -> "RecordBatch":
+        """The records of every range ``start_keys[i] <= key <=
+        end_keys[i]`` (ranges in key order and disjoint), concatenated
+        in key order, with one search for all of them."""
+        m = len(start_keys)
+        pos = searchsorted_keys_many(
+            self.keys, np.concatenate([start_keys, end_keys]),
+            np.arange(2 * m) >= m)
+        lo, hi = pos[:m], np.maximum(pos[m:], pos[:m])
+        cnt = hi - lo
+        idx = (np.arange(int(cnt.sum()))
+               + np.repeat(lo - (np.cumsum(cnt) - cnt), cnt))
+        keys = np.asarray(self.keys)[idx]
+        if not self.has_data:
+            return RecordBatch(keys)
+        offsets = np.zeros(len(idx) + 1, np.int64)
+        np.cumsum(self.offsets[idx + 1] - self.offsets[idx],
+                  out=offsets[1:])
+        # a range's records lie together: one slice of the data a range
+        blob = np.asarray(self.data)  # a run's mmap, sliced as a plain view
+        data = np.concatenate(
+            [blob[0:0]] + [blob[i:j] for i, j in
+                           zip(self.offsets[lo].tolist(),
+                               self.offsets[hi].tolist())])
+        return RecordBatch(keys, offsets, data)
 
 
 def _dedup_newest(all_keys: np.ndarray, recency: np.ndarray,
@@ -397,11 +434,17 @@ class MemTable:
 
     def range(self, start_key: np.ndarray, end_key: np.ndarray
               ) -> RecordBatch:
-        """Merged range read over the segments (newest-wins applied)."""
+        """:meth:`ranges` of one."""
+        return self.ranges(start_key.reshape(1), end_key.reshape(1))
+
+    def ranges(self, start_keys: np.ndarray, end_keys: np.ndarray
+               ) -> RecordBatch:
+        """Merged read of many disjoint ranges in key order over the
+        segments (newest-wins applied)."""
         self._seal()
         return merge_batches(
             [self._empty()]
-            + [s.range(start_key, end_key) for s in self._segments],
+            + [s.ranges(start_keys, end_keys) for s in self._segments],
             keep_tombstones=True)
 
     def batch(self) -> RecordBatch:
@@ -659,11 +702,20 @@ class Rdb:
 
     def get_list(self, start_key: np.ndarray, end_key: np.ndarray
                  ) -> RecordBatch:
-        """Merged range read across runs + memtable, tombstones applied."""
+        """Merged range read across runs + memtable, tombstones applied:
+        :meth:`get_ranges` of one."""
+        return self.get_ranges(start_key.reshape(1), end_key.reshape(1))
+
+    def get_ranges(self, start_keys: np.ndarray, end_keys: np.ndarray
+                   ) -> RecordBatch:
+        """Merged read of many disjoint ranges in key order across runs
+        + memtable, tombstones applied, with one search of each run and
+        of each memtable segment for all of them."""
         if g_chaos.enabled:
             g_chaos.rdb_fault(self)
-        sources = [r.batch().range(start_key, end_key) for r in self.runs]
-        sources.append(self.mem.range(start_key, end_key))
+        sources = [r.batch().ranges(start_keys, end_keys)
+                   for r in self.runs]
+        sources.append(self.mem.ranges(start_keys, end_keys))
         return merge_batches(sources)
 
     def get_all(self) -> RecordBatch:

@@ -43,15 +43,16 @@ def unpack_key(keys: np.ndarray) -> dict[str, np.ndarray]:
     }
 
 
-def start_key(docid: int) -> np.ndarray:
-    k = np.zeros((), dtype=KEY_DTYPE)
-    k["n1"] = np.uint64(docid)
+def start_key(docid) -> np.ndarray:
+    """The first key a docid (or an array of docids) can hold."""
+    k = np.zeros(np.shape(docid), dtype=KEY_DTYPE)
+    k["n1"] = np.asarray(docid, np.uint64)
     return k
 
 
-def end_key(docid: int) -> np.ndarray:
-    k = np.zeros((), dtype=KEY_DTYPE)
-    k["n1"] = np.uint64(docid)
+def end_key(docid) -> np.ndarray:
+    """The last key a docid (or an array of docids) can hold."""
+    k = start_key(docid)
     k["n0"] = np.uint32(0xFFFFFFFF)
     return k
 

@@ -115,10 +115,10 @@ def _declare_rdbcore(lib: ctypes.CDLL) -> None:
     lib.osse_merge_runs.argtypes = [
         ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64),
         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
-    lib.osse_searchsorted.restype = ctypes.c_int64
-    lib.osse_searchsorted.argtypes = [
+    lib.osse_searchsorted_many.restype = None
+    lib.osse_searchsorted_many.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
-        ctypes.c_void_p, ctypes.c_int32]
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def get_lib() -> ctypes.CDLL | None:
@@ -149,20 +149,24 @@ def merge_runs(key_arrays: list[np.ndarray],
     return out[:n].copy()
 
 
-def searchsorted(sorted_keys: np.ndarray, probe: np.ndarray,
-                 side: str) -> int | None:
-    """Native binary search of one probe key, or None when the library
-    is unavailable."""
+def searchsorted_many(sorted_keys: np.ndarray, probes: np.ndarray,
+                      right: np.ndarray) -> np.ndarray | None:
+    """Native binary searches of many probe keys in one call, probe i on
+    the right side where ``right[i]``, or None when the library is
+    unavailable."""
     lib = get_lib()
     if lib is None:
         return None
     a = np.ascontiguousarray(sorted_keys)
-    p = np.ascontiguousarray(probe)
-    if p.dtype != a.dtype or p.size != 1:
-        raise ValueError("searchsorted: one probe of the run's key dtype")
-    return int(lib.osse_searchsorted(
-        a.ctypes.data, len(a), a.dtype.itemsize, p.ctypes.data,
-        1 if side == "right" else 0))
+    p = np.ascontiguousarray(probes)
+    if p.dtype != a.dtype:
+        raise ValueError("searchsorted_many: probes of the run's key dtype")
+    side = np.ascontiguousarray(right, dtype=np.uint8)
+    out = np.empty(len(p), np.int64)
+    lib.osse_searchsorted_many(a.ctypes.data, len(a), a.dtype.itemsize,
+                               p.ctypes.data, len(p), side.ctypes.data,
+                               out.ctypes.data)
+    return out
 
 
 # --- doccore: HTML tokenize, term hash and rank columns ------------------

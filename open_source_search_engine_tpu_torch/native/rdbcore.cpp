@@ -9,8 +9,9 @@
 // width (posdb 18B, titledb 12B, clusterdb 16B, linkdb 12B, ...), and the
 // delbit is always bit 0 of byte 0.
 //
-// A copy of the JAX package's native/rdbcore.cpp, carried so that the
-// port builds from its own sources.
+// Grown from a copy of the JAX package's native/rdbcore.cpp, carried so
+// that the port builds from its own sources; its key search takes many
+// probes a call.
 //
 // Build: g++ -O3 -shared -fPIC rdbcore.cpp -o librdbcore_<hash>.so
 // (driven by native/__init__.py into build/torch_native/; the numpy
@@ -81,28 +82,33 @@ int64_t osse_merge_runs(const uint8_t** runs, const int64_t* counts,
   return written;
 }
 
-// lower(side=0)/upper(side=1) bound of probe in a sorted run, comparing
-// full keys (delbit included, as the least-significant bit).
-int64_t osse_searchsorted(const uint8_t* run, int64_t n, int32_t key_size,
-                          const uint8_t* probe, int32_t side) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    int64_t mid = lo + ((hi - lo) >> 1);
-    const uint8_t* k = run + mid * key_size;
-    int c = 0;
-    for (int i = key_size - 1; i >= 0; --i) {
-      if (k[i] != probe[i]) {
-        c = k[i] < probe[i] ? -1 : 1;
-        break;
+// lower(side[j] = 0) or upper(side[j] = 1) bound of each of m probes in a
+// sorted run, into out[j], comparing full keys (delbit included, as the
+// least-significant bit).
+void osse_searchsorted_many(const uint8_t* run, int64_t n, int32_t key_size,
+                            const uint8_t* probes, int64_t m,
+                            const uint8_t* side, int64_t* out) {
+  for (int64_t j = 0; j < m; ++j) {
+    const uint8_t* probe = probes + j * key_size;
+    int64_t lo = 0, hi = n;
+    while (lo < hi) {
+      int64_t mid = lo + ((hi - lo) >> 1);
+      const uint8_t* k = run + mid * key_size;
+      int c = 0;
+      for (int i = key_size - 1; i >= 0; --i) {
+        if (k[i] != probe[i]) {
+          c = k[i] < probe[i] ? -1 : 1;
+          break;
+        }
+      }
+      if (c < 0 || (side[j] == 1 && c == 0)) {
+        lo = mid + 1;
+      } else {
+        hi = mid;
       }
     }
-    if (c < 0 || (side == 1 && c == 0)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+    out[j] = lo;
   }
-  return lo;
 }
 
 }  // extern "C"

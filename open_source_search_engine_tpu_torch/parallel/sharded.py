@@ -967,9 +967,14 @@ class MeshResident:
             self._pool = ThreadPoolExecutor(max(sc.n_shards, 1))
         per_shard = list(self._pool.map(run_shard, self.indexes))
 
-        def site_of(docid):
-            home = int(sc.hostmap.shard_of_docid(docid))
-            return self.indexes[home].sitehash_of(docid)
+        def sitehashes_of(docids):
+            docids = np.asarray(docids, np.uint64)
+            home = sc.hostmap.shard_of_docid(docids)
+            out = np.zeros(len(docids), np.int64)
+            for s in np.unique(home):
+                at = home == s
+                out[at] = self.indexes[int(s)].sitehashes_of(docids[at])
+            return out
 
         out = []
         for qi, plan in enumerate(plans):
@@ -983,7 +988,8 @@ class MeshResident:
             results, clustered = build_results(
                 sc.get_document, docids[order], scores[order], plan,
                 topk=want, with_snippets=False,
-                site_cluster=site_cluster, site_of=site_of)
+                site_cluster=site_cluster,
+                sitehashes=sitehashes_of(docids[order]))
             page = finish_page(
                 results, offset=offset, topk=topk,
                 conf=sc.shards[0].conf, qlang=plan.lang,
@@ -1053,15 +1059,13 @@ class MeshResident:
         with lock_ctx:
             for plan, (docids, scores, total, clustered, shash) in \
                     zip(plans, raw):
-                site_map = {int(d): int(h)
-                            for d, h in zip(docids, shash)}
                 # survivors hold at most MAX_PER_SITE per site already;
                 # the host walk counts only what the merge cannot see
                 # (content-hash dedup freeing a site's slot)
                 results, host_cl = build_results(
                     sc.get_document, docids, scores, plan, topk=want,
                     with_snippets=False, site_cluster=True,
-                    site_of=lambda d: site_map.get(int(d), 0))
+                    sitehashes=shash)
                 page = finish_page(
                     results, offset=offset, topk=topk,
                     conf=sc.shards[0].conf, qlang=plan.lang,

@@ -1111,12 +1111,17 @@ class DeviceIndex:
             cc = self._cluster = (ad, sh, lg)
         return cc
 
-    def sitehash_of(self, docid: int) -> int:
-        """The docid's sitehash from the clusterdb column: site clustering
-        runs off it without a titledb read (Msg51.h:96)."""
+    def sitehashes_of(self, docids) -> np.ndarray:
+        """The docids' sitehashes from the clusterdb column (0 for a
+        docid off the doc axis), with one search for all of them: site
+        clustering runs off them without a titledb read (Msg51.h:96)."""
         ad, sh, _ = self._cluster_cols()
-        rows, ok = self._docid_pos(np.array([docid], np.uint64), ad)
-        return int(sh[rows[0]]) if ok[0] else 0
+        rows, ok = self._docid_pos(np.asarray(docids, np.uint64), ad)
+        return np.where(ok, sh[rows], 0)
+
+    def sitehash_of(self, docid: int) -> int:
+        """One docid's :meth:`sitehashes_of`."""
+        return int(self.sitehashes_of([docid])[0])
 
     def langid_of(self, docid: int) -> int:
         """Docid → langid from the same clusterdb columns."""

@@ -121,48 +121,113 @@ class SearchResults:
 def build_results(get_doc, docids, scores, plan: QueryPlan, *,
                   topk: int, with_snippets: bool = True,
                   site_cluster: bool = True,
-                  dedup_content: bool = True, site_of=None,
+                  dedup_content: bool = True, sitehashes=None,
                   page: tuple[int, int] | None = None
                   ) -> tuple[list[Result], int]:
-    """Msg40's post-merge stage: walk merged candidates best-first, fetch
-    titlerecs, apply content-hash dedup and site clustering (at most
-    MAX_PER_SITE per site), build summaries. Returns (results, number
-    hidden by clustering/dedup).
+    """One query's :func:`build_results_batch`."""
+    return build_results_batch(
+        get_doc, [(docids, scores)], [plan], topk=topk,
+        with_snippets=with_snippets, site_cluster=site_cluster,
+        dedup_content=dedup_content,
+        sitehashes=None if sitehashes is None else [sitehashes],
+        page=page)[0]
 
-    ``site_of`` (docid → sitehash, the clusterdb column) clusters before
-    any titledb read. ``page`` = (offset, n): with ``site_of``, rows
-    past the PQR_SCAN window and outside the page keep only docid and
-    score (no titledb read; content dedup skips them)."""
-    words = plan.match_words()
+
+#: what the predicting walk reads in place of a record: present, with
+#: no content hash (so never a duplicate) and no site
+_ANY_RECORD = {"url": ""}
+
+
+def build_results_batch(get_doc, rows, plans, *, topk: int,
+                        with_snippets: bool = True,
+                        site_cluster: bool = True,
+                        dedup_content: bool = True, sitehashes=None,
+                        page: tuple[int, int] | None = None,
+                        prefetch=None) -> list[tuple[list[Result], int]]:
+    """Msg40's post-merge stage for a batch of queries, ``rows`` =
+    ``(docids, scores)`` each: walk each query's merged candidates
+    best-first, fetch titlerecs, apply content-hash dedup and site
+    clustering (at most MAX_PER_SITE per site), build summaries. Returns
+    (results, number hidden by clustering/dedup) per query.
+
+    ``sitehashes`` (per query, the clusterdb sitehash of each row)
+    clusters before any titledb read. ``page`` = (offset, n): with
+    ``sitehashes``, rows past the PQR_SCAN window and outside the page
+    keep only docid and score (no titledb read; content dedup skips
+    them). ``prefetch`` (docids → None), when given, is handed every
+    docid the walks will read if no record is missing or a duplicate,
+    before the first read: the batch's titlerecs in one lookup. The
+    summaries of all the rows are built in one pass."""
+    walks = []
+    for qi, (docids, scores) in enumerate(rows):
+        sh = None if sitehashes is None \
+            else np.asarray(sitehashes[qi]).tolist()
+        walks.append((np.asarray(docids).tolist(),
+                      np.asarray(scores).tolist(), sh))
+    if prefetch is not None:
+        want: list[int] = []
+
+        def predict(d):
+            want.append(d)
+            return _ANY_RECORD
+        for docids, scores, sh in walks:
+            _walk(predict, docids, scores, sh, topk=topk,
+                  site_cluster=site_cluster, dedup_content=dedup_content,
+                  page=page)
+        prefetch(want)
+    out = []
+    snip: list[tuple[Result, dict, list[str]]] = []
+    n_rows = 0
+    for (docids, scores, sh), plan in zip(walks, plans):
+        results, clustered, walked, recs = _walk(
+            get_doc, docids, scores, sh, topk=topk,
+            site_cluster=site_cluster, dedup_content=dedup_content,
+            page=page)
+        n_rows += walked
+        for r, rec in recs:
+            r.url = rec.get("url", "")
+            r.title = summary_mod.choose_title(rec)
+        if with_snippets:
+            words = plan.match_words()
+            snip += [(r, rec, words) for r, rec in recs]
+        out.append((results, clustered))
+    g_stats.count("page.rows", n_rows)
+    _summarize(snip)
+    return out
+
+
+def _walk(get_doc, docids, scores, sh, *, topk, site_cluster,
+          dedup_content, page):
+    """One query's walk of :func:`build_results_batch`. Returns
+    (results, clustered, rows walked, [(result, record)] of the results
+    that read a record, whose URL and title the caller sets)."""
     per_site: dict = {}
     seen_hashes: set[int] = set()
     results: list[Result] = []
+    recs: list[tuple[Result, dict]] = []
     clustered = 0
-    for docid, score in zip(docids, scores):
+    walked = 0
+    for i, (docid, score) in enumerate(zip(docids, scores)):
         if len(results) >= topk:
             break
+        walked += 1
         if score <= 0.0:
             continue
-        if site_cluster and site_of is not None:
-            sh = site_of(int(docid))
-            if sh and per_site.get(sh, 0) >= MAX_PER_SITE:
+        if site_cluster and sh is not None:
+            if sh[i] and per_site.get(sh[i], 0) >= MAX_PER_SITE:
                 clustered += 1
                 continue
         rank = len(results)
-        if (page is not None and site_of is not None
+        if (page is not None and sh is not None
                 and rank >= PQR_SCAN
                 and not (page[0] <= rank < page[0] + page[1])):
-            if site_cluster:
-                sh = site_of(int(docid))
-                if sh:
-                    per_site[sh] = per_site.get(sh, 0) + 1
-            results.append(Result(docid=int(docid), score=float(score)))
+            if site_cluster and sh[i]:
+                per_site[sh[i]] = per_site.get(sh[i], 0) + 1
+            results.append(Result(docid=docid, score=score))
             continue
-        rec = get_doc(int(docid))
-        r = Result(docid=int(docid), score=float(score))
+        rec = get_doc(docid)
+        r = Result(docid=docid, score=score)
         if rec:
-            r.url = rec.get("url", "")
-            r.title = summary_mod.choose_title(rec)
             r.site = rec.get("site", "")
             ch = rec.get("content_hash")
             if dedup_content and ch is not None:
@@ -170,22 +235,30 @@ def build_results(get_doc, docids, scores, plan: QueryPlan, *,
                     clustered += 1
                     continue
                 seen_hashes.add(ch)
-            if site_cluster and site_of is not None:
-                sh = site_of(int(docid))
-                if sh:
-                    per_site[sh] = per_site.get(sh, 0) + 1
+            if site_cluster and sh is not None:
+                if sh[i]:
+                    per_site[sh[i]] = per_site.get(sh[i], 0) + 1
             elif site_cluster and r.site:
                 seen = per_site.get(r.site, 0)
                 if seen >= MAX_PER_SITE:
                     clustered += 1
                     continue
                 per_site[r.site] = seen + 1
-            if with_snippets:
-                r.snippet = summary_mod.make_summary(
-                    rec.get("text", ""), words,
-                    description=rec.get("meta_description", ""))
+            recs.append((r, rec))
         results.append(r)
-    return results, clustered
+    return results, clustered, walked, recs
+
+
+def _summarize(rows) -> None:
+    """Set each ``(result, record, query words)`` row's snippet, all the
+    rows' summaries in one :func:`summary.make_summaries` pass."""
+    if not rows:
+        return
+    snips = summary_mod.make_summaries(
+        [(rec.get("text", ""), words, rec.get("meta_description", ""))
+         for _, rec, words in rows])
+    for (r, _, _), sn in zip(rows, snips):
+        r.snippet = sn
 
 
 def apply_pqr(results, conf=None, qlang: int = 0, langid_of=None) -> None:
@@ -217,21 +290,29 @@ def _coll_langid_of(coll: Collection):
 def finish_page(results, *, offset: int, topk: int, conf=None,
                 qlang: int = 0, langid_of=None, get_doc=None,
                 words=None, with_snippets: bool = True):
-    """The post-merge tail: PQR over the fixed top window → slice the
-    requested page → summaries for the page rows only."""
+    """One query's :func:`finish_pages`."""
+    return finish_pages([results], offset=offset, topk=topk, conf=conf,
+                        qlangs=[qlang], langid_of=langid_of,
+                        get_doc=get_doc, words=[words or []],
+                        with_snippets=with_snippets)[0]
+
+
+def finish_pages(results_list, *, offset: int, topk: int, conf=None,
+                 qlangs, langid_of=None, get_doc=None, words,
+                 with_snippets: bool = True):
+    """The post-merge tail of a batch of queries: PQR over each one's
+    fixed top window → slice the requested pages → summaries for the
+    page rows only, all the batch's in one pass."""
     with trace.span("query.rerank"):
-        apply_pqr(results, conf, qlang, langid_of=langid_of)
-    page = results[offset:offset + topk]
+        for results, qlang in zip(results_list, qlangs):
+            apply_pqr(results, conf, qlang, langid_of=langid_of)
+    pages = [results[offset:offset + topk] for results in results_list]
     if with_snippets and get_doc is not None:
-        with trace.span("query.summary", rows=len(page)):
-            for r in page:
-                if not r.snippet:
-                    rec = get_doc(int(r.docid))
-                    if rec:
-                        r.snippet = summary_mod.make_summary(
-                            rec.get("text", ""), words or [],
-                            description=rec.get("meta_description", ""))
-    return page
+        with trace.span("query.summary", rows=sum(map(len, pages))):
+            _summarize([(r, rec, w) for page, w in zip(pages, words)
+                        for r in page if not r.snippet
+                        for rec in (get_doc(int(r.docid)),) if rec])
+    return pages
 
 
 def compute_facets(plan: QueryPlan, docids, get_doc) -> dict:
@@ -448,8 +529,8 @@ def search_device_batch(coll: Collection, queries, *, topk: int = 10,
                         ) -> list[SearchResults]:
     """Batched device-resident search: the batch's queries are planned on
     the host and answered in waves on the collection's device, one fetch
-    per round; then the page build runs per query, with clusterdb site
-    clustering.
+    per round; then :func:`build_pages` builds the batch's pages, with
+    clusterdb site clustering.
 
     ``resident=True`` hands the batch to the collection's ResidentLoop,
     which is already double-buffering waves, instead of issuing and
@@ -484,39 +565,75 @@ def search_device_batch(coll: Collection, queries, *, topk: int = 10,
         with trace.timed_span("query.device_batch", queries=len(plans)):
             raw = di.search_batch(plans, topk=ktot, lang=lang)
 
-    # one titlerec memo for the whole batch
+    return build_pages(coll, di, plans, raw, topk=topk, offset=offset,
+                       with_snippets=with_snippets,
+                       site_cluster=site_cluster,
+                       results_lock=results_lock)
+
+
+def build_pages(coll: Collection, di, plans, raw, *, topk: int = 10,
+                offset: int = 0, with_snippets: bool = True,
+                site_cluster: bool = True, results_lock=None
+                ) -> list[SearchResults]:
+    """The page build of a device batch, ``raw`` = ``(docids, scores,
+    n_matched)`` per plan from ``di``: the rows' sitehashes in one
+    clusterdb-column search, the titlerecs the walks will read in one
+    titledb lookup, then the walks, PQR and every page's summaries in
+    one pass. ``results_lock``, when given, is held around it (titledb
+    reads mutate rdblite state)."""
+    # one titlerec memo for the whole batch: the rows the walks will
+    # read come in one titledb lookup; a row that content dedup or a
+    # missing record brings in past them is read on its own
     doc_memo: dict[int, dict | None] = {}
+    n_reads = n_hits = n_fallback = 0
+
+    def prefetch(docids):
+        nonlocal n_reads, n_hits
+        recs, read = docproc.get_documents(coll, docids)
+        doc_memo.update(recs)
+        n_reads += read
+        n_hits += len(recs) - read
 
     def get_doc(d: int):
+        nonlocal n_fallback
         d = int(d)
         if d not in doc_memo:
-            if len(doc_memo) >= 4096:
-                doc_memo.clear()
+            n_fallback += 1
             doc_memo[d] = docproc.get_document(coll, docid=d)
         return doc_memo[d]
 
-    out = []
     lock_ctx = results_lock if results_lock is not None \
         else contextlib.nullcontext()
     t_res = time.perf_counter()
     with lock_ctx:
-        for plan, (docids, scores, n_matched) in zip(plans, raw):
-            results, clustered = build_results(
-                get_doc, docids, scores, plan,
-                topk=max(topk + offset, PQR_SCAN), with_snippets=False,
-                site_cluster=site_cluster, site_of=di.sitehash_of,
-                page=(offset, topk))
-            page = finish_page(
-                results, offset=offset, topk=topk, conf=coll.conf,
-                qlang=plan.lang, langid_of=di.langid_of, get_doc=get_doc,
-                words=plan.match_words(), with_snippets=with_snippets)
-            out.append(SearchResults(
-                query=plan.raw, total_matches=n_matched, results=page,
-                clustered=clustered,
-                suggestion=_suggest(coll, plan) if n_matched == 0 else None,
-                facets=compute_facets(plan, docids, get_doc),
-                generation=di._built_version))
+        rows = [(docids, scores) for docids, scores, _ in raw]
+        sh = di.sitehashes_of(np.concatenate(
+            [np.asarray(d, np.uint64) for d, _ in rows]
+            or [np.empty(0, np.uint64)]))
+        cuts = np.cumsum([len(d) for d, _ in rows])[:-1]
+        built = build_results_batch(
+            get_doc, rows, plans, topk=max(topk + offset, PQR_SCAN),
+            with_snippets=False, site_cluster=site_cluster,
+            sitehashes=np.split(sh, cuts), page=(offset, topk),
+            prefetch=prefetch)
+        pages = finish_pages(
+            [results for results, _ in built], offset=offset, topk=topk,
+            conf=coll.conf, qlangs=[plan.lang for plan in plans],
+            langid_of=di.langid_of, get_doc=get_doc,
+            words=[plan.match_words() for plan in plans],
+            with_snippets=with_snippets)
+        out = [SearchResults(
+            query=plan.raw, total_matches=n_matched, results=page,
+            clustered=clustered,
+            suggestion=_suggest(coll, plan) if n_matched == 0 else None,
+            facets=compute_facets(plan, docids, get_doc),
+            generation=di._built_version)
+            for plan, (docids, _, n_matched), (_, clustered), page
+            in zip(plans, raw, built, pages)]
     trace.record("query.results_batch", t_res, queries=len(out))
+    g_stats.count("page.doc_reads", n_reads)
+    g_stats.count("page.doc_cache_hits", n_hits)
+    g_stats.count("page.doc_fallback", n_fallback)
     return out
 
 

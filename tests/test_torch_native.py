@@ -66,6 +66,24 @@ class TestNativeCore:
         np.testing.assert_array_equal(nat, py)
         np.testing.assert_array_equal(nat, ref)
 
+    def test_searchsorted_many_matches_one_probe_at_a_time(
+            self, lib, monkeypatch):
+        """Many probes in one search, each on its own side, natively and
+        in numpy's rounds, equal the reference's search a probe."""
+        keys = _random_keys(500, seed=4)
+        probes = np.concatenate([_random_keys(40, seed=5), keys[::17]])
+        right = np.arange(len(probes)) % 3 == 0
+        want = [int(jrdblite.searchsorted_keys(
+            keys, probes[i:i + 1], "right" if right[i] else "left")[0])
+            for i in range(len(probes))]
+        nat = rdblite.searchsorted_keys_many(keys, probes, right)
+        monkeypatch.setattr(native, "available", lambda: False)
+        py = rdblite.searchsorted_keys_many(keys, probes, right)
+        assert nat.tolist() == py.tolist() == want
+        assert rdblite.searchsorted_keys_many(keys[:0], probes,
+                                              right).tolist() == \
+            [0] * len(probes)
+
     @pytest.mark.parametrize("keep_tombstones", [False, True])
     def test_merge_matches_numpy_and_the_reference(
             self, lib, monkeypatch, keep_tombstones):
@@ -106,7 +124,7 @@ class TestNativeCore:
         with pytest.raises(ValueError, match="dtype"):
             native.merge_runs([a, b], False)
         with pytest.raises(ValueError, match="dtype"):
-            native.searchsorted(a, b[:1], "left")
+            native.searchsorted_many(a, b[:1], np.zeros(1, bool))
 
 
 _BUILD_PROBE = """
